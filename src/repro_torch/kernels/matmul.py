@@ -1,0 +1,88 @@
+"""Tiled matmul: ``C(M,N) f32 = A(M,K) @ B(K,N)``, A and B f32 or bf16.
+
+Grid (nm, nn, nk): (m, n) parallel — the Tally-schedulable blocks — and k
+sequential. The CUDA kernel (``csrc/matmul.cu``) runs one block per (m, n)
+task and sweeps K inside it; ``matmul_body`` is the plain PyTorch version of
+one grid cell, exactly the reference's body.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.descriptor import BlockMap, KernelDescriptor
+from repro_torch.kernels.launch import DTYPE_CODES, TileKernel
+
+
+def _pick_block(dim: int, target: int) -> int:
+    """Largest divisor of dim <= target."""
+    b = min(dim, target)
+    while dim % b:
+        b -= 1
+    return b
+
+
+def matmul_body(pids, a, b, o):
+    """One grid cell: zero the output tile at k == 0, then add a @ b in f32
+    (callers on the card keep TF32 off)."""
+    if pids[2] == 0:
+        o.zero_()
+    o += a.float() @ b.float()
+
+
+class MatmulKernel(TileKernel):
+    name = "matmul"
+    lib = "matmul"
+    source = "src/repro_torch/kernels/csrc/matmul.cu"
+    replaces = "src/repro/kernels/matmul.py:26"
+
+    def check(self, desc, args, outs) -> None:
+        a, b = args
+        (c,) = outs
+        M, K = a.shape
+        N = b.shape[1]
+        if a.dtype != b.dtype or a.dtype not in DTYPE_CODES:
+            raise TypeError(f"matmul kernel takes f32 or bf16 A and B of one "
+                            f"type, got {a.dtype} and {b.dtype}")
+        if (b.shape[0] != K or tuple(c.shape) != (M, N)
+                or c.dtype != torch.float32):
+            raise ValueError(f"matmul kernel: bad shapes {tuple(a.shape)} @ "
+                             f"{tuple(b.shape)} -> {tuple(c.shape)} {c.dtype}")
+        if not all(t.is_contiguous() for t in (a, b, c)):
+            raise ValueError("matmul kernel takes contiguous tensors")
+
+    def shape_args(self, desc, args, outs):
+        a, b = args
+        M, K = a.shape
+        s = desc.static
+        return [ctypes.c_int(v) for v in
+                (M, K, b.shape[1], s["bm"], s["bn"], DTYPE_CODES[a.dtype])]
+
+
+MATMUL = MatmulKernel()
+
+
+def matmul_desc(M: int, K: int, N: int, dtype=torch.float32, *,
+                bm: int = 128, bk: int = 512, bn: int = 128
+                ) -> KernelDescriptor:
+    bm = _pick_block(M, bm)
+    bk = _pick_block(K, bk)
+    bn = _pick_block(N, bn)
+    grid = (M // bm, N // bn, K // bk)
+    itemsize = dtype.itemsize
+    return KernelDescriptor(
+        name=f"matmul_{M}x{K}x{N}",
+        body=matmul_body,
+        kernel=MATMUL,
+        static={"bm": bm, "bk": bk, "bn": bn},
+        grid=grid,
+        in_maps=(BlockMap((bm, bk), lambda i, j, k: (i, k)),
+                 BlockMap((bk, bn), lambda i, j, k: (k, j))),
+        out_maps=(BlockMap((bm, bn), lambda i, j, k: (i, j)),),
+        out_shape=(((M, N), torch.float32),),
+        parallel_axes=(0, 1),
+        flops=2.0 * M * N * K,
+        bytes_accessed=float((M * K + K * N) * itemsize + M * N * 4),
+        revisits_output=True,
+    )

@@ -1,0 +1,36 @@
+"""Public wrappers around the kernels: the entry points a model calls on
+its ``use_pallas`` path (ports of ``repro.kernels.ops``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.descriptor import build_plain
+from repro_torch.kernels.flash_attention import flash_attention_desc
+from repro_torch.kernels.matmul import matmul_desc
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
+           bk: int = 512, bn: int = 128) -> torch.Tensor:
+    """a (..., M, K) @ b (K, N) through the matmul kernel; output a.dtype."""
+    *lead, M, K = a.shape
+    N = b.shape[-1]
+    a2 = a.reshape(-1, K).contiguous()
+    desc = matmul_desc(a2.shape[0], K, N, a.dtype, bm=bm, bk=bk, bn=bn)
+    out = build_plain(desc)(a2, b.contiguous())[0]
+    return out.reshape(*lead, M, N).to(a.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, bq: int = 256,
+                    bk: int = 512) -> torch.Tensor:
+    """q (B,S,H,D); k,v (B,T,KVH,D) -> (B,S,H,D)."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    qf = q.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    kf = k.transpose(1, 2).reshape(B * KVH, T, D).contiguous()
+    vf = v.transpose(1, 2).reshape(B * KVH, T, D).contiguous()
+    desc = flash_attention_desc(B * H, S, T, D, G, q.dtype, causal=causal,
+                                bq=bq, bk=bk)
+    out = build_plain(desc)(qf, kf, vf)[0]
+    return out.reshape(B, H, S, D).transpose(1, 2)
