@@ -9,18 +9,23 @@ Phases, each raising on failure:
   2. kernel against plain: each kernel family in each launch form (plain;
      sliced with k=3; persistent with W=132 and budgets cycling 1, 2, 5)
      against its plain PyTorch version, at the small parity shapes of the
-     transform tests (f32) and at the qwen2.5-14b shapes of the main path
-     (bf16);
-  3. times at the qwen2.5-14b shapes: kernel, plain version, one library
-     call as yardstick (timed here only, never used by the port) and the
-     bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
+     transform tests (f32), at the qwen2.5-14b shapes of the main path and
+     at the mamba2-130m shapes of the SSD scan (bf16);
+  3. times at those shapes: kernel, plain version, one library call as
+     yardstick where one PyTorch call computes the same function (timed
+     here only, never used by the port) and the bound
+     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
   4. the main path: a TallyServer on the card, a best-effort "training"
-     client with the full-width matmul and flash attention, and a
+     client with the full-width matmul, flash attention and SSD scan, and a
      high-priority "inference" client sending prefill requests of one
-     qwen2.5-14b decoder layer. Launch counts are zeroed before and read
-     after; every entry point must have run.
-The line before the last is the kernels' JSON summary, the last line
-``{"ok": true, "device": {...}}``.
+     qwen2.5-14b decoder layer;
+  5. the model path: mamba2-130m at full width on its use_pallas path,
+     served by the ported ServingEngine (6 requests, 8 new tokens each);
+     every prefill of every layer runs the SSD kernel, and each prompt's
+     prefill is held against the torch-ops path.
+Phases 4 and 5 each zero the launch counts before and read them after;
+every entry point of the path must have run. The line before the last is
+the kernels' JSON summary, the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -41,6 +46,11 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (data sheet)
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 (data sheet)
 SMALL_TOL = dict(rtol=1e-4, atol=1e-4)
 WORKERS, SLICES, BUDGETS = 132, 3, (1, 2, 5)
+# phase 5: prompt lengths (chunk lengths L = 256, 150, 1, 100, 64, 256)
+PROMPTS, NEW_TOKENS = (512, 300, 257, 100, 64, 512), 8
+# phase 5 gates, relative L2 error of the kernel path against torch ops:
+# f32 logits and states (sum order through 24 layers), bf16 layer-0 state
+MODEL_TOL_F32, STATE0_TOL = 1e-3, 1e-4
 REPS = 5                      # timed runs per kernel form (median kept)
 SEED = 0
 
@@ -83,9 +93,10 @@ def run_form(desc, args, form: str, kernel: bool):
     return outs, dones
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """One bf16 ulp at |x| (8 significant bits), no smaller than at 2^-8."""
-    mag = x.float().abs().clamp_min(2.0 ** -8)
+def bf16_ulp(x: torch.Tensor, floor: float = 2.0 ** -8) -> torch.Tensor:
+    """One bf16 ulp at |x| (8 significant bits), no smaller than at
+    ``floor``."""
+    mag = x.float().abs().clamp_min(floor)
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
@@ -105,6 +116,18 @@ def compare(name, got, want, kind: str) -> float:
         bound = 1e-3 * w.abs().max().item()
         ok = max_abs <= bound
         tol = f"max_abs <= 1e-3*max|ref| = {bound:.3e}"
+    elif kind == "ssd" and got.dtype == torch.float32:
+        # the SSD state h: f32 sums of the same terms in another order
+        bound = 1e-4 * w.abs().max().item()
+        ok = max_abs <= bound
+        tol = f"max_abs <= 1e-4*max|ref| = {bound:.3e}"
+    elif kind == "ssd":
+        # y: f32 sums in another order, then one rounding to bf16; the
+        # sums' error scales with their terms, of the order of max|y|, so
+        # the ulp is taken no smaller than at 2^-8 max|y|
+        floor = 2.0 ** -8 * w.abs().max().item()
+        ok = bool((err <= 2 * bf16_ulp(w, floor)).all())
+        tol = "<= 2 bf16 ulps (ulps taken no smaller than at 2^-8 max|ref|)"
     else:
         # f32 online softmax in another order, then one rounding to bf16:
         # the two may round apart by an ulp or so
@@ -131,8 +154,10 @@ def check_forms(label, desc, args, kind: str):
                 raise AssertionError(f"{label} {form}: done differs")
         if len(k_done) != len(p_done):
             raise AssertionError(f"{label} {form}: launch counts differ")
-        errs[form] = max(compare(f"{label} {form}", k, p, kind)
-                         for k, p in zip(k_outs, p_outs))
+        errs[form] = max(
+            compare(f"{label} {form}" + (f" out{i}" if i else ""), k, p,
+                    kind)
+            for i, (k, p) in enumerate(zip(k_outs, p_outs)))
         if form == "plain":
             ref = p_outs
     return errs, ref
@@ -161,7 +186,50 @@ def small_cases(dev):
           (tensor(rng, (BH, S, D), f32, dev),
            tensor(rng, (BH // G, S, D), f32, dev),
            tensor(rng, (BH // G, S, D), f32, dev)))
-    return {"matmul 96x64x48 f32": mm, "flash 6x32x32x8 g2 causal f32": fl}
+    cases = {"matmul 96x64x48 f32": mm, "flash 6x32x32x8 g2 causal f32": fl}
+    # the SSD scan: the transform tests' parity geometry, a prime S (L = 1)
+    # and S < chunk
+    for B, S, NH, HD, DS, chunk in ((3, 24, 2, 4, 4, 8), (2, 13, 2, 4, 4, 8),
+                                    (2, 20, 3, 8, 5, 32)):
+        desc, args = ssd_case(rng, dev, B, S, NH, HD, DS, chunk, f32)
+        L = desc.static["L"]
+        cases[f"ssd {B}x{S}x{NH}x{HD}x{DS} chunk {chunk} L={L} f32"] = (
+            desc, args)
+    return cases
+
+
+def ssd_case(rng, dev, B, S, NH, HD, DS, chunk, dtype):
+    """An SSD launch as the model makes it: x, Bm, Cm in ``dtype`` (B and C
+    scaled so that C.B is of order one), dt, A and D in f32."""
+    from repro_torch.kernels.mamba2_scan import mamba2_scan_desc
+
+    def f32(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
+    args = (tensor(rng, (B, S, NH, HD), dtype, dev),
+            f32(rng.uniform(0.1, 0.9, size=(B, S, NH))),
+            -f32(rng.uniform(0.5, 2.0, size=(NH,))),
+            tensor(rng, (B, S, DS), dtype, dev, DS ** -0.25),
+            tensor(rng, (B, S, DS), dtype, dev, DS ** -0.25),
+            f32(rng.standard_normal(size=(NH,))))
+    return mamba2_scan_desc(B, S, NH, HD, DS, chunk, dtype), args
+
+
+def ssd_full_cases(cfg, dev, seqs=PROMPTS[:5], batch_be=264, seq_be=512):
+    """The SSD launches of the mamba2 path at the model's width (bf16): one
+    HP prefill per prompt length of phase 5 (L = 256, 150, 1, 100, 64) and
+    the BE job of phase 4, whose batch is two waves of 132 blocks."""
+    rng = np.random.default_rng(SEED + 3)
+    s = cfg.ssm
+    NH, HD, DS = s.num_heads(cfg.d_model), s.head_dim, s.d_state
+    cases = {}
+    for S in seqs:
+        label = "ssd_hp" if S == seqs[0] else f"ssd_hp_s{S}"
+        cases[label] = ssd_case(rng, dev, 1, S, NH, HD, DS, s.chunk_size,
+                                torch.bfloat16)
+    cases["ssd_be"] = ssd_case(rng, dev, batch_be, seq_be, NH, HD, DS,
+                               s.chunk_size, torch.bfloat16)
+    return cases
 
 
 def full_cases(cfg, dev, seq_hp=512, tokens_be=4096, seq_be=2048):
@@ -219,8 +287,12 @@ def bound(desc):
 
 
 def library_fn(label, desc, args, heads: int):
-    """One PyTorch call computing the same function (yardstick only)."""
+    """One PyTorch call computing the same function (yardstick only), or
+    None where there is none: no single PyTorch call computes the SSD
+    scan."""
     import torch.nn.functional as F
+    if label.startswith("ssd"):
+        return None
     if label.startswith("mm"):
         a, b = args
         return lambda: torch.matmul(a, b)
@@ -241,7 +313,8 @@ def time_cases(cases, reps: int, heads: int):
     rows = {}
     for label, (desc, args) in cases.items():
         b_ms, b_by = bound(desc)
-        lib_ms = cuda_ms(library_fn(label, desc, args, heads), reps)
+        lib = library_fn(label, desc, args, heads)
+        lib_ms = None if lib is None else cuda_ms(lib, reps)
         plain_ms = cuda_ms(lambda: run_form(desc, args, "plain", False), 1,
                            warmup=0)
         for form in ("plain", "sliced", "persistent"):
@@ -249,8 +322,9 @@ def time_cases(cases, reps: int, heads: int):
             rows[(label, form)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=lib_ms)
+            lib_s = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
             print(f"  {label} {form}: kernel {ms:.3f} ms, plain version "
-                  f"{plain_ms:.1f} ms, library {lib_ms:.3f} ms, bound "
+                  f"{plain_ms:.1f} ms, library {lib_s}, bound "
                   f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound",
                   flush=True)
     return rows
@@ -323,7 +397,8 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
                tensor(rng, (KVH, S, D), bf, dev),
                tensor(rng, (KVH, S, D), bf, dev),
                tensor(rng, (S, E), bf, dev)) for _ in range(8)]
-    be_work = [cases["mm_be"], cases["flash_be"]]
+    be_labels = [lb for lb in ("mm_be", "flash_be", "ssd_be") if lb in cases]
+    be_work = [cases[lb] for lb in be_labels]
     server.sync()
 
     for fam in kernels.FAMILIES:
@@ -359,10 +434,11 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
         e = server.profiler.entry(j)
         print(f"    {j.desc.name}: {e.config} (exec {e.exec_time * 1e3:.2f} "
               f"ms, turnaround {e.turnaround * 1e3:.3f} ms)")
-    for (d, a), ref_out in zip(be_work, (refs["mm_be"], refs["flash_be"])):
-        kind = "matmul" if d.name.startswith("matmul") else "flash"
+    for (d, a), lb in zip(be_work, be_labels):
         for j in [x for x in warm + be_jobs if x.desc is d]:
-            compare(f"server BE {d.name}", j.result(0)[0], ref_out[0], kind)
+            for k, (got, want) in enumerate(zip(j.result(0), refs[lb])):
+                compare(f"server BE {d.name} out{k}", got, want,
+                        d.kernel.name)
     from repro_torch.core.descriptor import new_outputs
     for r, (lat, jobs, y) in enumerate(alone):
         if tuple(y.shape) != (S, E) or not torch.isfinite(y).all():
@@ -370,9 +446,8 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
         for (d, j), (_, jc) in zip(jobs, coloc[r][1]):
             plain = new_outputs(d, dev)
             d.kernel.plain_version(d, j.args, plain)
-            kind = "matmul" if d.name.startswith("matmul") else "flash"
             compare(f"server HP req{r} {d.name}", j.result(0)[0], plain[0],
-                    kind)
+                    d.kernel.name)
             if not torch.equal(j.result(0)[0], jc.result(0)[0]):
                 raise AssertionError(f"HP request {r}: co-located output "
                                      "differs from the alone run")
@@ -386,9 +461,6 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
           f"last request ended, {(last_be - hp_end) * 1e3:.1f} ms of BE "
           f"work after it)")
 
-    def pct(xs, q):
-        return float(np.percentile(np.asarray(xs) * 1e3, q))
-
     la = [x[0] for x in alone]
     lc = [x[0] for x in coloc]
     print(f"  HP request latency alone: p50 {pct(la, 50):.3f} ms, p99 "
@@ -400,6 +472,199 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
         raise AssertionError(f"entry points never launched on the main "
                              f"path: {missing}")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The model path: mamba2 behind the ported ServingEngine
+# ---------------------------------------------------------------------------
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 error ||got - want|| / ||want|| in f32."""
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+def pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def serve(model, params, prompts, scfg, new_tokens):
+    """Requests for ``prompts`` through a fresh ServingEngine, run until
+    idle. Returns (requests, seconds of each decode step, wall seconds)."""
+    from repro_torch.device import synchronize
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(model, params, scfg)
+    dev = params["embed"].device
+    decode_s = []
+    step = eng._decode
+
+    def timed(*a):
+        t = time.monotonic()
+        out = step(*a)
+        synchronize(dev)
+        decode_s.append(time.monotonic() - t)
+        return out
+
+    eng._decode = timed
+    synchronize(dev)
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    eng.run_until_idle()
+    synchronize(dev)
+    return reqs, decode_s, time.monotonic() - t0
+
+
+def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
+                capacity=4, max_len=1024):
+    """mamba2 on its use_pallas path behind the ported ServingEngine, with
+    weights drawn from a seeded generator on the device. Every prefill of
+    every layer runs the SSD kernel; decode runs ``ssd_decode`` (torch
+    ops). Returns the launch counts of the run."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.kernels.mamba2_scan import chunk_len
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import ServingConfig
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    toks = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in prompts]
+    scfg = ServingConfig(capacity=capacity, max_len=max_len)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}, {param_count_tree(params) / 1e6:.1f} M "
+          f"parameters ({cfg.param_dtype}), activations {cfg.dtype}; "
+          f"ServingEngine(capacity={capacity}, max_len={max_len})",
+          flush=True)
+    serve(model, params, toks[-2:-1], scfg, 2)      # warm-up, not counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    reqs, decode_s, wall = serve(model, params, toks, scfg, new_tokens)
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+
+    # -- checks ---------------------------------------------------------------
+    for r, n in zip(reqs, prompts):
+        if not r.done or r.shed or len(r.tokens) != new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.rid} ({n} tokens): "
+                                 f"{len(r.tokens)} tokens, done={r.done}")
+    ttft = [r.ttft for r in reqs]
+    lat = [r.latency for r in reqs]
+    dec_tokens = sum(len(r.tokens) - 1 for r in reqs)
+    print(f"  {len(reqs)} requests of {list(prompts)} tokens, "
+          f"{new_tokens} new tokens each, in {wall * 1e3:.1f} ms", flush=True)
+    print(f"  TTFT p50 {pct(ttft, 50):.1f} ms, p99 {pct(ttft, 99):.1f} ms; "
+          f"request latency p50 {pct(lat, 50):.1f} ms, p99 "
+          f"{pct(lat, 99):.1f} ms; decode {dec_tokens} tokens in "
+          f"{len(decode_s)} steps, {dec_tokens / sum(decode_s):.1f} tokens/s "
+          f"({sum(decode_s) / len(decode_s) * 1e3:.2f} ms a step)")
+    if dev.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+    # each prompt's prefill, the kernel path against the torch-ops path
+    # (ssd_chunked), on the same weights. Gated: (a) with f32 activations,
+    # the logits and every layer's ssm_state, whose difference is the sums'
+    # order (~1e-6 a layer) carried through 24 layers; (b) in bf16, as
+    # served, layer 0's ssm_state, whose inputs are identical in both paths.
+    # Printed only: bf16 logits and deeper states, where the paths' y round
+    # apart by an ulp here and there and 24 random-init layers amplify it.
+    models = {(dt, pal): build_model(dataclasses.replace(
+        cfg, dtype=dt, use_pallas=pal))
+        for dt in (torch.float32, cfg.dtype) for pal in (True, False)}
+    for n, t in zip(prompts, toks):
+        x = torch.as_tensor(t[None], dtype=torch.long, device=dev)
+        err = {}
+        for dt in (torch.float32, cfg.dtype):
+            lk, ck = models[(dt, True)].prefill(params, x)
+            lp, cp = models[(dt, False)].prefill(params, x)
+            if not torch.isfinite(lk).all():
+                raise AssertionError(f"prefill of {n} tokens: non-finite")
+            err[dt] = (rel_err(lk, lp),
+                       [rel_err(ck["ssm_state"][i], cp["ssm_state"][i])
+                        for i in range(cfg.num_layers)])
+        e32, ebf = err[torch.float32], err[cfg.dtype]
+        ok = (max(e32[0], *e32[1]) <= MODEL_TOL_F32
+              and ebf[1][0] <= STATE0_TOL)
+        print(f"  prefill {n} tokens (L={chunk_len(n, cfg.ssm.chunk_size)}): "
+              f"f32 logits rel err {e32[0]:.2e}, states max "
+              f"{max(e32[1]):.2e} [<= {MODEL_TOL_F32:g}]; bf16 layer-0 "
+              f"state {ebf[1][0]:.2e} "
+              f"[<= {STATE0_TOL:g}] {'ok' if ok else 'FAIL'}; bf16 logits "
+              f"{ebf[0]:.2e}, states max {max(ebf[1]):.2e} (not gated)",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"prefill of {n} tokens: the kernel path "
+                                 "disagrees with the torch-ops path")
+    ops_reqs, _, _ = serve(models[(cfg.dtype, False)], params, toks, scfg,
+                           new_tokens)
+    same = sum(a == b for r, o in zip(reqs, ops_reqs)
+               for a, b in zip(r.tokens, o.tokens))
+    print(f"  greedy tokens equal to the torch-ops path's: {same}/"
+          f"{len(reqs) * new_tokens} (printed, not gated)")
+    where_the_time_goes(model, params, cfg, dev, toks[0], capacity)
+
+    print(f"  launches on the model path: {json.dumps(counts)}")
+    need = cfg.num_layers * len(prompts)
+    if counts["ssd_plain"] < need:
+        raise AssertionError(f"ssd_plain launched {counts['ssd_plain']} "
+                             f"times on the model path, fewer than "
+                             f"{need}: entry points never launched")
+    return counts
+
+
+def where_the_time_goes(model, params, cfg, dev, prompt, capacity):
+    """One lone prefill and one decode step of ``capacity`` slots, each
+    timed on the host clock and traced by torch.profiler: device-busy time
+    (the kernels' summed self time), idle share and the top kernels. The
+    profiler's own host cost inflates the traced wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import kv_cache_specs
+    from repro_torch.device import synchronize
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    x = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
+    cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (
+        shape, dtype) in kv_cache_specs(cfg, capacity, 1).items()}
+    tok = torch.zeros(capacity, 1, dtype=torch.long, device=dev)
+    for label, fn in ((f"prefill {len(prompt)} tokens",
+                       lambda: model.prefill(params, x)),
+                      (f"decode step, {capacity} slots",
+                       lambda: model.decode_step(params, tok, cache))):
+        fn()
+        synchronize(dev)
+        t = time.monotonic()
+        fn()
+        synchronize(dev)
+        bare = time.monotonic() - t
+        with profile(activities=acts) as prof:
+            t = time.monotonic()
+            fn()
+            synchronize(dev)
+            traced = time.monotonic() - t
+        # the kernels' own events (an operator's self device time repeats
+        # its kernels' time)
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA), reverse=True)
+        busy = sum(r[0] for r in rows)
+        if not rows:
+            print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
+                  "(the profiler saw no device activity)")
+            continue
+        print(f"  {label}: {bare * 1e3:.2f} ms; traced {traced * 1e3:.2f} ms, "
+              f"device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
+        for ms, count, key in rows[:6]:
+            print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
 
 
 # ---------------------------------------------------------------------------
@@ -430,34 +695,45 @@ def main() -> int:
 
     dev = torch.device("cuda")
     cfg = get_config("qwen2.5-14b")
+    mcfg = get_config("mamba2-130m")
     print("[2] kernel against plain version", flush=True)
     for label, (desc, args) in small_cases(dev).items():
         check_forms(label, desc, args, "small")
-    cases = full_cases(cfg, dev)
+    cases = {**full_cases(cfg, dev), **ssd_full_cases(mcfg, dev)}
     errs, refs = {}, {}
     for label, (desc, args) in cases.items():
-        kind = "matmul" if label.startswith("mm") else "flash"
-        errs[label], refs[label] = check_forms(label, desc, args, kind)
+        errs[label], refs[label] = check_forms(label, desc, args,
+                                               desc.kernel.name)
 
-    print("[3] times at qwen2.5-14b width (bf16)", flush=True)
-    rows = time_cases(cases, REPS, cfg.num_heads)
+    print("[3] times at qwen2.5-14b and mamba2-130m width (bf16)",
+          flush=True)
+    rows = time_cases({k: v for k, v in cases.items()
+                       if not k.startswith("ssd_hp_s")}, REPS,
+                      cfg.num_heads)
 
     print("[4] main path: Tally server, HP inference + BE training",
           flush=True)
     counts = server_phase(cfg, cases, refs, dev)
 
+    print("[5] model path: mamba2-130m behind the ServingEngine", flush=True)
+    m_counts = model_phase(mcfg, dev)
+
     fams = {f.name: f for f in kernels.FAMILIES}
     summary = []
-    for fname, label in (("matmul", "mm_be"), ("flash", "flash_be")):
+    for fname, label in (("matmul", "mm_be"), ("flash", "flash_be"),
+                         ("ssd", "ssd_be")):
         fam = fams[fname]
         desc = cases[label][0]
         for form in ("plain", "sliced", "persistent"):
             r = rows[(label, form)]
+            name = f"{fname}_{form}"
             summary.append({
-                "name": f"{fname}_{form}", "route": "cuda",
+                "name": name, "route": "cuda",
                 "source": fam.source, "replaces": fam.replaces,
                 "shape": desc.name,
-                "launches": counts[f"{fname}_{form}"],
+                "launches": counts[name] + m_counts[name],
+                "launches_by_path": {"server": counts[name],
+                                     "mamba2_serving": m_counts[name]},
                 "max_abs_err": errs[label][form], **r})
     print(card)
     print(json.dumps({"kernels": summary}))

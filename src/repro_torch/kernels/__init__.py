@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions."""
 from repro_torch.kernels.flash_attention import FLASH
+from repro_torch.kernels.mamba2_scan import SSD
 from repro_torch.kernels.matmul import MATMUL
 
 # every kernel family of the real-mode path
-FAMILIES = (MATMUL, FLASH)
+FAMILIES = (MATMUL, FLASH, SSD)
 
 
 def build_all() -> list:

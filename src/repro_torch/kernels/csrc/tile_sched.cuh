@@ -1,6 +1,7 @@
 // Task scheduling shared by every kernel family: the three launch forms of
 // one tile routine. A task is one cell (p0, p1) of the descriptor's
-// two-axis parallel grid (G0, G1); each task runs its full sequential sweep.
+// two-axis parallel grid (G0, G1); a one-axis grid runs as G1 = 1 with
+// off1 = 0. Each task runs its full sequential sweep.
 //
 //   plain      : task = (blockIdx.x, blockIdx.y)
 //   sliced     : task = (blockIdx.x + off0, blockIdx.y + off1)

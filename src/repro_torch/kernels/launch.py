@@ -61,7 +61,7 @@ class TileKernel:
         if self._on_cpu(args, outs):
             return self.sliced_version(sub, args, outs)
         g0, g1 = self._grid(sub)
-        off0, off1 = (sub.offsets[ax] for ax in sub.parallel_axes)
+        off0, off1 = self._pair(sub, sub.offsets, 0)
         self._launch("sliced", sub, args, outs,
                      [ctypes.c_int(g0), ctypes.c_int(g1),
                       ctypes.c_int(off0), ctypes.c_int(off1)])
@@ -117,8 +117,19 @@ class TileKernel:
         return False
 
     @staticmethod
-    def _grid(desc: KernelDescriptor):
-        g0, g1 = (desc.grid[ax] for ax in desc.parallel_axes)
+    def _pair(desc: KernelDescriptor, values, missing: int):
+        """``values`` along the one or two parallel axes as (v0, v1); a
+        missing second axis gives ``missing`` (``csrc/tile_sched.cuh``
+        runs a one-axis grid as G1 = 1, off1 = 0)."""
+        got = [values[ax] for ax in desc.parallel_axes]
+        if not 1 <= len(got) <= 2:
+            raise ValueError(f"{desc.name}: {len(got)} parallel axes; the "
+                             "CUDA launch forms take one or two")
+        return (got[0], got[1] if len(got) == 2 else missing)
+
+    @classmethod
+    def _grid(cls, desc: KernelDescriptor):
+        g0, g1 = cls._pair(desc, desc.grid, 1)
         if g1 > MAX_GRID_Y:
             raise ValueError(f"{desc.name}: grid axis 1 has {g1} blocks, "
                              f"more than CUDA's {MAX_GRID_Y}")

@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.core.descriptor import build_plain
 from repro_torch.kernels.flash_attention import flash_attention_desc
+from repro_torch.kernels.mamba2_scan import mamba2_scan_desc
 from repro_torch.kernels.matmul import matmul_desc
 
 
@@ -34,3 +35,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                 bq=bq, bk=bk)
     out = build_plain(desc)(qf, kf, vf)[0]
     return out.reshape(B, H, S, D).transpose(1, 2)
+
+
+def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
+                chunk: int = 256):
+    """Chunked SSD scan. x (B,S,NH,HD), dt (B,S,NH), A (NH,), Bm/Cm (B,S,DS),
+    D (NH,). Returns (y (B,S,NH,HD) x.dtype, h_final (B,NH,HD,DS) f32).
+    The model passes x, Bm and Cm as strided views of one activation; they
+    are made contiguous here."""
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
+    desc = mamba2_scan_desc(B, S, NH, HD, DS, chunk, x.dtype)
+    y, h = build_plain(desc)(*(t.contiguous() for t in (x, dt, A, Bm, Cm,
+                                                         D)))
+    return y, h

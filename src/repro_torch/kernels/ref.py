@@ -25,3 +25,22 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         s = torch.where(qpos >= kpos, s, -math.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bst,btd->bsd", p, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, D):
+    """Sequential (per-token) SSD recurrence — independent of the chunked
+    algorithm. x (B,S,NH,HD), dt (B,S,NH), A (NH,), Bm/Cm (B,S,DS), D (NH,).
+    Returns (y (B,S,NH,HD) f32, h_final (B,NH,HD,DS) f32)."""
+    B, S, NH, HD = x.shape
+    DS = Bm.shape[-1]
+    x, dt, Bm, Cm = x.float(), dt.float(), Bm.float(), Cm.float()
+    A, D = A.float(), D.float()
+    h = torch.zeros(B, NH, HD, DS, device=x.device)
+    ys = []
+    for t in range(S):
+        a = torch.exp(dt[:, t] * A[None])                   # (B,NH)
+        h = a[..., None, None] * h + torch.einsum(
+            "bh,bhd,be->bhde", dt[:, t], x[:, t], Bm[:, t])
+        ys.append(torch.einsum("bhde,be->bhd", h, Cm[:, t])
+                  + x[:, t] * D[None, :, None])
+    return torch.stack(ys, dim=1), h

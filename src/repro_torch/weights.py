@@ -15,14 +15,18 @@ import torch
 
 def params_from_jax(tree: Any, device: Union[str, torch.device],
                     dtype: Optional[torch.dtype] = None) -> Any:
-    """numpy tree -> tensor tree on ``device`` (cast to ``dtype`` if given)."""
+    """numpy tree -> tensor tree on ``device`` (cast to ``dtype`` if given,
+    else in the leaf's own type: a bfloat16 leaf stays bfloat16)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device, dtype) for k, v in tree.items()}
     arr = np.asarray(tree)
+    own = None
     if str(arr.dtype) == "bfloat16":
-        arr = arr.astype(np.float32)    # numpy has no native bfloat16
+        # numpy has no native bfloat16: go through f32, which holds every
+        # bfloat16 value exactly
+        arr, own = arr.astype(np.float32), torch.bfloat16
     t = torch.from_numpy(np.array(arr))    # a writable copy
-    return t.to(device=device, dtype=dtype or t.dtype)
+    return t.to(device=device, dtype=dtype or own or t.dtype)
 
 
 def mlp_weights(params: Dict[str, Any], layer: int

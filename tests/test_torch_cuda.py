@@ -61,3 +61,79 @@ def test_kernel_matches_plain_version(cuda, form):
         assert fam.launches[f"{fam.name}_{form}"] > before[
             f"{fam.name}_{form}"]
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+
+
+def _ssd_args(dev, B, S, NH, HD, DS, dtype=torch.float32, seed=3):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, lo=None, hi=None, dt=torch.float32):
+        a = (rng.uniform(lo, hi, size=shape) if lo is not None
+             else rng.normal(size=shape))
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dt)
+
+    return (t(B, S, NH, HD, dt=dtype), t(B, S, NH, lo=0.1, hi=0.9),
+            -t(NH, lo=0.5, hi=2.0), t(B, S, DS, dt=dtype),
+            t(B, S, DS, dt=dtype), t(NH))
+
+
+# (B, S, NH, HD, DS, chunk): the transform tests' parity geometry, a prime
+# S (L = 1), S < chunk, L = 150 (not a power of two), and L = 256 at the
+# model's head and state widths
+SSD_SHAPES = [(3, 24, 2, 4, 4, 8), (2, 13, 2, 4, 4, 8), (2, 20, 3, 8, 5, 32),
+              (2, 300, 2, 16, 8, 256), (2, 512, 3, 64, 128, 256)]
+
+
+@pytest.mark.parametrize("form", ["plain", "sliced", "persistent"])
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version(cuda, form, shape):
+    """f32: only the order of the sums differs (y within 1e-4 relative to
+    max|y|, h within 1e-4 relative to max|h|); persistent ``done`` equal."""
+    from repro_torch.kernels.mamba2_scan import SSD, mamba2_scan_desc
+    B, S, NH, HD, DS, chunk = shape
+    args = _ssd_args(cuda, B, S, NH, HD, DS)
+    desc = mamba2_scan_desc(B, S, NH, HD, DS, chunk)
+    want = new_outputs(desc, cuda, zero=True)
+    SSD.plain_version(desc, args, want)
+    before = SSD.launches[f"ssd_{form}"]
+    got = new_outputs(desc, cuda, zero=True)
+    if form == "plain":
+        SSD.plain(desc, args, got)
+    elif form == "sliced":
+        for off, ln in T.slice_plan(desc, 2):
+            SSD.sliced(T.make_slice(desc, off, ln), args, got)
+    else:
+        start = 0
+        while start < desc.num_blocks:
+            done = SSD.persistent(desc, 2, start, 1, args, got)
+            ref_done = SSD.persistent_version(
+                desc, 2, start, 1, args, new_outputs(desc, cuda, zero=True))
+            assert torch.equal(done.cpu(), ref_done.cpu())
+            start = T.preempt_watermark(start, 1, 2, desc.num_blocks)
+    torch.cuda.synchronize()
+    assert SSD.launches[f"ssd_{form}"] > before
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4 * max(w.abs().max().item(), 1.0), err
+
+
+def test_ssd_kernel_bf16_full_width(cuda):
+    """bf16 x, B, C at mamba2-130m width: y within 2 bf16 ulps of the plain
+    version, the ulp taken no smaller than at 2^-8 max|y| (f32 sums of the
+    same terms in another order, then one rounding; the sums' error scales
+    with the terms, which are of the order of max|y|, not with |y|), h
+    within 1e-3 of max|h|."""
+    from repro_torch.kernels.mamba2_scan import SSD, mamba2_scan_desc
+    args = _ssd_args(cuda, 2, 512, 24, 64, 128, torch.bfloat16)
+    desc = mamba2_scan_desc(2, 512, 24, 64, 128, 256, torch.bfloat16)
+    want = new_outputs(desc, cuda)
+    SSD.plain_version(desc, args, want)
+    got = build_plain(desc)(*args)
+    torch.cuda.synchronize()
+    y, h = got
+    yw, hw = want
+    ulp = torch.exp2(torch.floor(torch.log2(yw.float().abs().clamp_min(
+        2.0 ** -8 * yw.float().abs().max().item()))) - 7)
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert bool(((y.float() - yw.float()).abs() <= 2 * ulp).all())
+    assert (h - hw).abs().max().item() <= 1e-3 * hw.abs().max().item()

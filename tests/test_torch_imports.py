@@ -21,6 +21,9 @@ print(len(names), bad)
 assert not bad, bad
 assert "repro_torch.core.virtualization" in names
 assert "repro_torch.kernels.flash_attention" in names
+assert "repro_torch.kernels.mamba2_scan" in names
+assert "repro_torch.models.mamba2" in names
+assert "repro_torch.serving.engine" in names
 """
 
 

@@ -11,9 +11,11 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import \
     flash_attention_desc as jflash_desc
-from repro_torch.core.descriptor import build_plain
+from repro.kernels.mamba2_scan import mamba2_scan_desc as jssd_desc
+from repro_torch.core.descriptor import build_plain, new_outputs
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_desc
+from repro_torch.kernels.mamba2_scan import SSD, mamba2_scan_desc
 
 RNG = np.random.default_rng(42)
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -129,3 +131,111 @@ def test_flash_fully_masked_rows_give_zero():
     assert torch.isfinite(out).all()
     assert torch.all(out[:, :4] == 0)
     np.testing.assert_allclose(out.numpy(), _np(jout), rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunk scan
+# ---------------------------------------------------------------------------
+
+SSD_SWEEP = [(2, 48, 3, 8, 5, 16), (1, 64, 2, 16, 8, 32), (3, 30, 4, 4, 4, 10)]
+
+
+def _ssd_inputs(B, S, NH, HD, DS, dt):
+    """x, Bm, Cm in ``dt``; dt, A and D in f32, as the model passes them."""
+    jx, tx = _pair((B, S, NH, HD), dt)
+    dtv = RNG.uniform(0.1, 0.9, size=(B, S, NH)).astype(np.float32)
+    A = -RNG.uniform(0.5, 2.0, size=(NH,)).astype(np.float32)
+    jb, tb = _pair((B, S, DS), dt)
+    jc, tc = _pair((B, S, DS), dt)
+    _, tD = _pair((NH,), "f32")
+    D = tD.numpy()
+    jargs = (jx, jnp.asarray(dtv), jnp.asarray(A), jb, jc, jnp.asarray(D))
+    targs = (tx, torch.from_numpy(dtv), torch.from_numpy(A), tb, tc, tD)
+    return jargs, targs
+
+
+@pytest.mark.parametrize("B,S,NH,HD,DS,chunk", SSD_SWEEP)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mamba2_scan_matches_reference(B, S, NH, HD, DS, chunk, dt):
+    """Against JAX ``ops.mamba2_scan`` (Pallas, interpret mode): f32 within
+    1e-4 (the sums' order differs); bf16 y within 2e-2 (both compute in f32
+    and round once to bf16: an ulp apart at most), h (f32) within 1e-4.
+    Against the per-token ``ssd_ref`` with tests/test_kernels.py's
+    tolerances."""
+    jargs, targs = _ssd_inputs(B, S, NH, HD, DS, dt)
+    y, h = ops.mamba2_scan(*targs, chunk=chunk)
+    assert y.dtype == targs[0].dtype and h.dtype == torch.float32
+    assert tuple(h.shape) == (B, NH, HD, DS)
+    jy, jh = jops.mamba2_scan(*jargs, chunk=chunk)
+    ytol = dict(rtol=1e-4, atol=1e-4) if dt == "f32" \
+        else dict(rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_np(y), _np(jy), **ytol)
+    np.testing.assert_allclose(_np(h), _np(jh), rtol=1e-4, atol=1e-4)
+    yr, hr = jref.ssd_ref(*jargs)
+    rtol = dict(rtol=5e-2, atol=5e-1) if dt == "bf16" \
+        else dict(rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(_np(y), _np(yr), **rtol)
+    np.testing.assert_allclose(_np(h), _np(hr), **rtol)
+
+
+def test_ssd_ref_matches_reference():
+    jargs, targs = _ssd_inputs(2, 20, 3, 4, 5, "f32")
+    y, h = ref.ssd_ref(*targs)
+    jy, jh = jref.ssd_ref(*jargs)
+    np.testing.assert_allclose(y.numpy(), _np(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), _np(jh), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S,chunk", [(512, 256), (300, 256), (257, 256),
+                                     (100, 256), (64, 256), (24, 8),
+                                     (13, 8), (30, 10)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_ssd_descriptor_matches_reference(S, chunk, dt):
+    """Grid, chunk length, num_blocks and the cost counts of the
+    reference's descriptor (the profiler and the bound read them)."""
+    jdt, tdt = DTYPES[dt]
+    jd = jssd_desc(264, S, 24, 64, 128, chunk, jdt)
+    td = mamba2_scan_desc(264, S, 24, 64, 128, chunk, tdt)
+    assert td.grid == jd.grid
+    assert td.static["L"] == jd.in_maps[0].block_shape[1]
+    assert td.parallel_axes == jd.parallel_axes == (0,)
+    assert td.num_blocks == jd.num_blocks == 264
+    assert (td.flops, td.bytes_accessed) == (jd.flops, jd.bytes_accessed)
+    assert td.revisits_output == jd.revisits_output
+    assert [b.block_shape for b in td.in_maps + td.out_maps] == \
+        [b.block_shape for b in jd.in_maps + jd.out_maps]
+    for pids in ((0, 0), (5, td.grid[1] - 1)):
+        assert [b.index_map(*pids) for b in td.in_maps + td.out_maps] == \
+            [tuple(int(i) for i in b.index_map(*pids))
+             for b in jd.in_maps + jd.out_maps]
+    assert [(tuple(s), d) for s, d in td.out_shape] == \
+        [(tuple(o.shape), DTYPES["bf16" if o.dtype == jnp.bfloat16
+                                  else "f32"][1]) for o in jd.out_shape]
+
+
+def test_ssd_check_raises_on_what_the_kernel_does_not_take():
+    """The wrapper's checks run before any launch; the model's strided
+    views are made contiguous by ``ops.mamba2_scan`` and refused here."""
+    _, targs = _ssd_inputs(2, 16, 2, 4, 4, "f32")
+    desc = mamba2_scan_desc(2, 16, 2, 4, 4, 8)
+    outs = new_outputs(desc, torch.device("cpu"))
+    SSD.check(desc, targs, outs)
+    x, dtv, A, Bm, Cm, D = targs
+    wide = torch.cat([x, x], dim=-1)[..., :4]          # a strided view
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.check(desc, (wide, dtv, A, Bm, Cm, D), outs)
+    with pytest.raises(TypeError, match="f32"):
+        SSD.check(desc, (x, dtv.to(torch.bfloat16), A, Bm, Cm, D), outs)
+    with pytest.raises(TypeError, match="one type"):
+        SSD.check(desc, (x, dtv, A, Bm.to(torch.bfloat16), Cm, D), outs)
+    with pytest.raises(ValueError, match="bad shapes"):
+        SSD.check(desc, (x, dtv, A[:1], Bm, Cm, D), outs)
+    big = mamba2_scan_desc(2, 16, 2, 128, 4, 8)
+    xb = torch.zeros(2, 16, 2, 128)
+    with pytest.raises(ValueError, match="HD <= 64"):
+        SSD.check(big, (xb, dtv, A, Bm, Cm, D), new_outputs(big, "cpu"))
+    # the ops wrapper takes the strided views the model gives it
+    y, _ = ops.mamba2_scan(wide, dtv, A, Bm, Cm, D, chunk=8)
+    np.testing.assert_allclose(
+        y.numpy(), ops.mamba2_scan(wide.contiguous(), dtv, A, Bm, Cm, D,
+                                   chunk=8)[0].numpy(), rtol=0, atol=0)

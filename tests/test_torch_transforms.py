@@ -1,7 +1,7 @@
 """The port's transforms against the JAX reference: the same slice plans,
-slice axes and watermarks, and — for the matmul and flash attention
-kernels — the same sliced and preemptible outputs and per-launch ``done``
-arrays, on the same numpy inputs (the port's plain PyTorch path on the CPU,
+slice axes and watermarks, and — for the matmul, flash attention and SSD
+scan kernels — the same sliced and preemptible outputs and per-launch
+``done`` arrays, on the same numpy inputs (the port's plain PyTorch path on the CPU,
 the reference's Pallas kernels in interpret mode)."""
 import jax.numpy as jnp
 import numpy as np
@@ -9,13 +9,16 @@ import pytest
 import torch
 
 from repro.core import transforms as JT
+from repro.kernels import ref as jref
 from repro.kernels.flash_attention import \
     flash_attention_desc as jflash_desc
+from repro.kernels.mamba2_scan import mamba2_scan_desc as jssd_desc
 from repro.kernels.matmul import matmul_desc as jmatmul_desc
 from repro_torch.core import transforms as T
 from repro_torch.core.descriptor import new_outputs
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_desc
+from repro_torch.kernels.mamba2_scan import mamba2_scan_desc
 from repro_torch.kernels.matmul import matmul_desc
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -42,7 +45,24 @@ def _flash_case():
             lambda *t: [ref.attention_ref(*t, causal=True, group=G)])
 
 
-CASES = {"matmul": _matmul_case, "flash": _flash_case}
+def _ssd_case():
+    """The reference's ``_ssd_case`` geometry (tests/test_transforms.py),
+    against the per-token recurrence (JAX's ``ssd_ref``)."""
+    rng = np.random.default_rng(9)
+    B, S, NH, HD, DS = 3, 24, 2, 4, 4
+    args = (rng.normal(size=(B, S, NH, HD)).astype(np.float32),
+            rng.uniform(0.1, 0.9, size=(B, S, NH)).astype(np.float32),
+            -rng.uniform(0.5, 2.0, size=(NH,)).astype(np.float32),
+            rng.normal(size=(B, S, DS)).astype(np.float32),
+            rng.normal(size=(B, S, DS)).astype(np.float32),
+            rng.normal(size=(NH,)).astype(np.float32))
+    return (jssd_desc(B, S, NH, HD, DS, chunk=8),
+            mamba2_scan_desc(B, S, NH, HD, DS, chunk=8), args,
+            lambda *t: [torch.from_numpy(np.array(o)) for o in
+                        jref.ssd_ref(*(jnp.asarray(a.numpy()) for a in t))])
+
+
+CASES = {"matmul": _matmul_case, "flash": _flash_case, "ssd": _ssd_case}
 
 GEOMETRIES = {
     "matmul": lambda: (jmatmul_desc(96, 64, 48, bm=16, bk=32, bn=16),
@@ -54,6 +74,10 @@ GEOMETRIES = {
     "flash_tall": lambda: (jflash_desc(4, 64, 64, 8, 2, bq=8, bk=16),
                            flash_attention_desc(4, 64, 64, 8, 2, bq=8,
                                                 bk=16)),
+    "ssd": lambda: (jssd_desc(3, 24, 2, 4, 4, chunk=8),
+                    mamba2_scan_desc(3, 24, 2, 4, 4, chunk=8)),
+    "ssd_wide_batch": lambda: (jssd_desc(16, 13, 2, 4, 4, chunk=8),
+                               mamba2_scan_desc(16, 13, 2, 4, 4, chunk=8)),
 }
 
 
@@ -169,3 +193,22 @@ def test_sliced_writes_only_its_tiles():
     assert torch.all(out[~mine] == 7.0)
     np.testing.assert_allclose(out[mine].numpy(),
                                ref.matmul_ref(*targs)[mine].numpy(), **TOL)
+
+
+def test_launch_grid_takes_one_or_two_parallel_axes():
+    """The CUDA launch forms' grid and offsets: two parallel axes as they
+    are; the SSD's one axis as (G0, 1) with off1 = 0."""
+    from repro_torch.kernels.launch import TileKernel
+    _, md = GEOMETRIES["matmul"]()
+    assert TileKernel._grid(md) == (md.grid[0], md.grid[1])
+    sub = T.make_slice(md, 2, 3)
+    assert TileKernel._pair(sub, sub.offsets, 0) == tuple(
+        sub.offsets[ax] for ax in sub.parallel_axes)
+    _, sd = GEOMETRIES["ssd_wide_batch"]()
+    assert TileKernel._grid(sd) == (16, 1)
+    for off, ln in T.slice_plan(sd, 3):
+        s = T.make_slice(sd, off, ln)
+        assert TileKernel._grid(s) == (ln, 1)
+        assert TileKernel._pair(s, s.offsets, 0) == (off, 0)
+    with pytest.raises(ValueError, match="parallel axes"):
+        TileKernel._grid(sd.replace(parallel_axes=()))
