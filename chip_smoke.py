@@ -9,23 +9,29 @@ Phases, each raising on failure:
   2. kernel against plain: each kernel family in each launch form (plain;
      sliced with k=3; persistent with W=132 and budgets cycling 1, 2, 5)
      against its plain PyTorch version, at the small parity shapes of the
-     transform tests (f32), at the qwen2.5-14b shapes of the main path and
-     at the mamba2-130m shapes of the SSD scan (bf16);
-  3. times at those shapes: kernel, plain version, one library call as
-     yardstick where one PyTorch call computes the same function (timed
-     here only, never used by the port) and the bound
-     max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
+     transform tests (f32, the CUDA-core route), at the edges of the
+     tensor-core route (bf16: K not a multiple of 64, 256-wide blocks,
+     chunked-prefill and non-causal flash, D = 64), at the qwen2.5-14b
+     shapes of the main path and at the mamba2-130m shapes of the SSD scan
+     (bf16);
+  3. times at those shapes: kernel (on outputs made before the timed
+     window), plain version, one library call as yardstick where one
+     PyTorch call computes the same function (timed here only, never used
+     by the port) and the bound max(flops / 989 TFLOP/s, bytes / 3.35
+     TB/s);
   4. the main path: a TallyServer on the card, a best-effort "training"
      client with the full-width matmul, flash attention and SSD scan, and a
      high-priority "inference" client sending prefill requests of one
-     qwen2.5-14b decoder layer;
+     qwen2.5-14b decoder layer (one of them traced by torch.profiler);
   5. the model path: mamba2-130m at full width on its use_pallas path,
      served by the ported ServingEngine (6 requests, 8 new tokens each);
      every prefill of every layer runs the SSD kernel, and each prompt's
      prefill is held against the torch-ops path.
 Phases 4 and 5 each zero the launch counts before and read them after;
-every entry point of the path must have run. The line before the last is
-the kernels' JSON summary, the last line ``{"ok": true, "device": {...}}``.
+every entry point of the path must have run, and no bf16 matmul or flash
+launch may have taken the CUDA-core (f32) route. The line before the last
+is the kernels' JSON summary, the last line ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -52,6 +58,8 @@ PROMPTS, NEW_TOKENS = (512, 300, 257, 100, 64, 512), 8
 # f32 logits and states (sum order through 24 layers), bf16 layer-0 state
 MODEL_TOL_F32, STATE0_TOL = 1e-3, 1e-4
 REPS = 5                      # timed runs per kernel form (median kept)
+# a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
+HIDE_HOST_CYCLES = 40_000_000
 SEED = 0
 
 
@@ -67,13 +75,16 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
-def run_form(desc, args, form: str, kernel: bool):
+def run_form(desc, args, form: str, kernel: bool, outs=None):
     """Outputs (and the persistent form's ``done`` per launch) of ``desc``
-    run to completion in ``form`` by the CUDA kernel or the plain version."""
+    run to completion in ``form`` by the CUDA kernel or the plain version,
+    into ``outs`` if given (every form writes every tile), else into fresh
+    zeroed buffers."""
     from repro_torch.core import transforms as T
     from repro_torch.core.descriptor import new_outputs
     fam = desc.kernel
-    outs = new_outputs(desc, args[0].device, zero=True)
+    if outs is None:
+        outs = new_outputs(desc, args[0].device, zero=True)
     dones = []
     if form == "plain":
         (fam.plain if kernel else fam.plain_version)(desc, args, outs)
@@ -100,8 +111,31 @@ def bf16_ulp(x: torch.Tensor, floor: float = 2.0 ** -8) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def compare(name, got, want, kind: str) -> float:
-    """Max abs error of ``got`` against ``want``; raises past tolerance."""
+def p_rounding_slack(desc, args):
+    """What rounding P to bf16 before P·V may add to a bf16 flash output.
+
+    The tensor-core kernel rounds each p_j (<= 1) to bf16, which keeps 8
+    significant bits: a relative error d_j of at most 2^-8 (half an ulp at
+    the bottom of a binade). The row's output is sum_j p_j v_j / l with l
+    summed from the unrounded p, so the error sum_j d_j p_j v_j / l, with
+    independent d_j, is of order 2^-8 max|v| / sqrt(n) for a row that
+    attends n keys (and 0 for n = 1, whose p = 1 is exact); for softmax
+    weights of random scores that is some 8 standard deviations of it.
+    Returns that bound for each query row, (1, S, 1), or 0 for any other
+    launch."""
+    if desc.kernel.name != "flash" or args[0].dtype != torch.bfloat16:
+        return 0.0
+    s = desc.static
+    rows = torch.arange(args[0].shape[1], device=args[0].device)
+    n = ((rows + s["q_offset"] + 1).clamp(1, s["T"]) if s["causal"]
+         else torch.full_like(rows, s["T"]))
+    vmax = args[2].float().abs().max()
+    return (2.0 ** -8 * vmax / n.float().sqrt())[None, :, None]
+
+
+def compare(name, got, want, kind: str, slack=0.0) -> float:
+    """Max abs error of ``got`` against ``want``; raises past tolerance.
+    ``slack`` (flash attention only) is ``p_rounding_slack``."""
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
         raise AssertionError(f"{name}: non-finite output")
@@ -130,9 +164,11 @@ def compare(name, got, want, kind: str) -> float:
         tol = "<= 2 bf16 ulps (ulps taken no smaller than at 2^-8 max|ref|)"
     else:
         # f32 online softmax in another order, then one rounding to bf16:
-        # the two may round apart by an ulp or so
-        ok = bool((err <= 2 * bf16_ulp(w)).all())
-        tol = "<= 2 bf16 ulps (ulps taken no smaller than at 2^-8)"
+        # the two may round apart by an ulp or so; and P rounded to bf16
+        # before P·V on the tensor cores (p_rounding_slack)
+        ok = bool((err <= 2 * bf16_ulp(w) + slack).all())
+        tol = ("<= 2 bf16 ulps (ulps taken no smaller than at 2^-8) + "
+               "2^-8 max|v|/sqrt(keys attended)")
     print(f"  {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} [{tol}] "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
@@ -154,9 +190,10 @@ def check_forms(label, desc, args, kind: str):
                 raise AssertionError(f"{label} {form}: done differs")
         if len(k_done) != len(p_done):
             raise AssertionError(f"{label} {form}: launch counts differ")
+        slack = p_rounding_slack(desc, args)
         errs[form] = max(
             compare(f"{label} {form}" + (f" out{i}" if i else ""), k, p,
-                    kind)
+                    kind, slack)
             for i, (k, p) in enumerate(zip(k_outs, p_outs)))
         if form == "plain":
             ref = p_outs
@@ -196,6 +233,62 @@ def small_cases(dev):
         cases[f"ssd {B}x{S}x{NH}x{HD}x{DS} chunk {chunk} L={L} f32"] = (
             desc, args)
     return cases
+
+
+# bf16 launches at the edges of the tensor-core route: K not a multiple of
+# the 64-deep stage; 256-wide blocks, walked as 128 x 128 sub-tiles;
+# chunked prefill (T != S, q_offset > 0); non-causal with a ragged last key
+# tile; G = 5 with D = 64, where bq = 192 leaves the second pass's second
+# consumer without rows
+TC_EDGES = {
+    "mm_tc 256x200x384 b128": dict(M=256, K=200, N=384, blk=128),
+    "mm_tc 512x320x512 b256": dict(M=512, K=320, N=512, blk=256),
+    "flash_tc chunked S=128 T=384 q_offset=256":
+        dict(S=128, T=384, D=128, causal=True, q_offset=256, bq=256),
+    "flash_tc non-causal S=256 T=320":
+        dict(S=256, T=320, D=128, causal=False, q_offset=0, bq=256),
+    "flash_tc D=64 G=5 S=T=384":
+        dict(S=384, T=384, D=64, causal=True, q_offset=0, bq=192),
+}
+
+
+def tc_cases(dev):
+    """The ``TC_EDGES`` launches (flash: 10 heads, G = 5)."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    from repro_torch.kernels.matmul import matmul_desc
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    cases = {}
+    for label, g in TC_EDGES.items():
+        if label.startswith("mm"):
+            M, K, N = g["M"], g["K"], g["N"]
+            cases[label] = (matmul_desc(M, K, N, bf, bm=g["blk"],
+                                        bn=g["blk"]),
+                            (tensor(rng, (M, K), bf, dev),
+                             tensor(rng, (K, N), bf, dev, 1 / math.sqrt(K))))
+            continue
+        BH, G, S, T, D = 10, 5, g["S"], g["T"], g["D"]
+        cases[label] = (flash_attention_desc(BH, S, T, D, G, bf,
+                                             causal=g["causal"],
+                                             q_offset=g["q_offset"],
+                                             bq=g["bq"]),
+                        (tensor(rng, (BH, S, D), bf, dev),
+                         tensor(rng, (BH // G, T, D), bf, dev),
+                         tensor(rng, (BH // G, T, D), bf, dev)))
+    return cases
+
+
+def check_route(desc, before, route: str) -> None:
+    """Every launch since ``before`` (a copy of the family's counts) took
+    ``route``, in each of the three forms."""
+    fam = desc.kernel
+    for form in ("plain", "sliced", "persistent"):
+        for r in fam.routes:
+            sym = fam.symbol(r, form)
+            ran = fam.launches[sym] - before[sym]
+            if (r == route) != (ran > 0):
+                raise AssertionError(f"{desc.name} {form}: {sym} launched "
+                                     f"{ran} times, but the route is {route}")
 
 
 def ssd_case(rng, dev, B, S, NH, HD, DS, chunk, dtype):
@@ -263,14 +356,21 @@ def full_cases(cfg, dev, seq_hp=512, tokens_be=4096, seq_be=2048):
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median ms of ``fn`` over ``reps`` runs, each between CUDA events."""
+def cuda_ms(fn, reps: int, warmup: int = 1, hide_host: bool = True
+            ) -> float:
+    """Median ms of ``fn`` over ``reps`` runs, each between CUDA events.
+    With ``hide_host``, a sleep kernel ahead of the first event keeps the
+    card busy while the host enqueues ``fn``'s launches (tens of µs each,
+    as long as a small kernel), so the time is the launches' device time
+    back to back, not the host's."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(HIDE_HOST_CYCLES)
         a.record()
         fn()
         b.record()
@@ -310,15 +410,23 @@ def library_fn(label, desc, args, heads: int):
 
 
 def time_cases(cases, reps: int, heads: int):
+    """Each form of each case timed on outputs made before the timed window
+    (a fresh zeroed f32 output of mm_be alone is 226 MB to write). The
+    matmul kernel writes f32, as the reference's does; ``torch.matmul``,
+    the yardstick, writes bf16."""
+    from repro_torch.core.descriptor import new_outputs
     rows = {}
     for label, (desc, args) in cases.items():
         b_ms, b_by = bound(desc)
         lib = library_fn(label, desc, args, heads)
         lib_ms = None if lib is None else cuda_ms(lib, reps)
-        plain_ms = cuda_ms(lambda: run_form(desc, args, "plain", False), 1,
-                           warmup=0)
+        outs = new_outputs(desc, args[0].device, zero=True)
+        # the plain version's eager tile walk is host-bound: its time is
+        # the host's
+        plain_ms = cuda_ms(lambda: run_form(desc, args, "plain", False, outs),
+                           1, warmup=0, hide_host=False)
         for form in ("plain", "sliced", "persistent"):
-            ms = cuda_ms(lambda: run_form(desc, args, form, True), reps)
+            ms = cuda_ms(lambda: run_form(desc, args, form, True, outs), reps)
             rows[(label, form)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=lib_ms)
@@ -373,6 +481,30 @@ def hp_request(hp, cfg, inp, weights, descs):
     return lat, jobs, y
 
 
+def cuda_core_guard(counts, where: str) -> None:
+    """No bf16 launch of a family that has a tensor-core route may take its
+    CUDA-core route: on the main path those are all bf16."""
+    from repro_torch import kernels
+    from repro_torch.kernels.launch import CUDA_CORES, TENSOR_CORES
+    wrong = {fam.symbol(CUDA_CORES, f): counts[fam.symbol(CUDA_CORES, f)]
+             for fam in kernels.FAMILIES if TENSOR_CORES in fam.routes
+             for f in ("plain", "sliced", "persistent")}
+    if any(wrong.values()):
+        raise AssertionError(f"bf16 launches on the {where} took the "
+                             f"CUDA-core route: {wrong}")
+
+
+def main_path_symbols():
+    """The entry points the main path launches: each family's
+    tensor-core route where it has one, else its only route."""
+    from repro_torch import kernels
+    from repro_torch.kernels.launch import TENSOR_CORES
+    return [fam.symbol(TENSOR_CORES if TENSOR_CORES in fam.routes
+                       else next(iter(fam.routes)), f)
+            for fam in kernels.FAMILIES
+            for f in ("plain", "sliced", "persistent")]
+
+
 def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
     """The main path. ``be_iters`` training steps are queued before the
     co-located HP requests: many more BE quanta than the requests leave
@@ -413,6 +545,10 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
         for j in warm:
             j.result(600)
         alone = [hp_request(hp, cfg, inp, weights, descs) for inp in inputs]
+        # where a lone request's time goes (its launches count on the path)
+        profile_once("lone HP request",
+                     lambda: hp_request(hp, cfg, inputs[0], weights, descs),
+                     dev)
         be_jobs = [be.launch(d, *a) for _ in range(be_iters)
                    for d, a in be_work]
         coloc = [hp_request(hp, cfg, inp, weights, descs) for inp in inputs]
@@ -438,7 +574,7 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
         for j in [x for x in warm + be_jobs if x.desc is d]:
             for k, (got, want) in enumerate(zip(j.result(0), refs[lb])):
                 compare(f"server BE {d.name} out{k}", got, want,
-                        d.kernel.name)
+                        d.kernel.name, p_rounding_slack(d, a))
     from repro_torch.core.descriptor import new_outputs
     for r, (lat, jobs, y) in enumerate(alone):
         if tuple(y.shape) != (S, E) or not torch.isfinite(y).all():
@@ -447,7 +583,7 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
             plain = new_outputs(d, dev)
             d.kernel.plain_version(d, j.args, plain)
             compare(f"server HP req{r} {d.name}", j.result(0)[0], plain[0],
-                    d.kernel.name)
+                    d.kernel.name, p_rounding_slack(d, j.args))
             if not torch.equal(j.result(0)[0], jc.result(0)[0]):
                 raise AssertionError(f"HP request {r}: co-located output "
                                      "differs from the alone run")
@@ -467,7 +603,8 @@ def server_phase(cfg, cases, refs, dev, S=512, be_iters=4):
           f"{pct(la, 99):.3f} ms; co-located: p50 {pct(lc, 50):.3f} ms, "
           f"p99 {pct(lc, 99):.3f} ms", flush=True)
     print(f"  launches on the main path: {json.dumps(counts)}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    cuda_core_guard(counts, "main path")
+    missing = [k for k in main_path_symbols() if counts[k] <= 0]
     if missing:
         raise AssertionError(f"entry points never launched on the main "
                              f"path: {missing}")
@@ -612,6 +749,7 @@ def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     where_the_time_goes(model, params, cfg, dev, toks[0], capacity)
 
     print(f"  launches on the model path: {json.dumps(counts)}")
+    cuda_core_guard(counts, "model path")
     need = cfg.num_layers * len(prompts)
     if counts["ssd_plain"] < need:
         raise AssertionError(f"ssd_plain launched {counts['ssd_plain']} "
@@ -621,50 +759,54 @@ def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
 
 
 def where_the_time_goes(model, params, cfg, dev, prompt, capacity):
-    """One lone prefill and one decode step of ``capacity`` slots, each
-    timed on the host clock and traced by torch.profiler: device-busy time
-    (the kernels' summed self time), idle share and the top kernels. The
-    profiler's own host cost inflates the traced wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One lone prefill and one decode step of ``capacity`` slots."""
     from repro_torch.configs import kv_cache_specs
-    from repro_torch.device import synchronize
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     x = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
     cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (
         shape, dtype) in kv_cache_specs(cfg, capacity, 1).items()}
     tok = torch.zeros(capacity, 1, dtype=torch.long, device=dev)
-    for label, fn in ((f"prefill {len(prompt)} tokens",
-                       lambda: model.prefill(params, x)),
-                      (f"decode step, {capacity} slots",
-                       lambda: model.decode_step(params, tok, cache))):
-        fn()
-        synchronize(dev)
+    profile_once(f"prefill {len(prompt)} tokens",
+                 lambda: model.prefill(params, x), dev)
+    profile_once(f"decode step, {capacity} slots",
+                 lambda: model.decode_step(params, tok, cache), dev)
+
+
+def profile_once(label, fn, dev) -> None:
+    """``fn`` timed on the host clock (after one warm-up call) and traced
+    by torch.profiler: device-busy time (the kernels' summed self time),
+    idle share and the top kernels. The profiler's own host cost inflates
+    the traced wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.device import synchronize
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    fn()
+    synchronize(dev)
+    t = time.monotonic()
+    fn()
+    synchronize(dev)
+    bare = time.monotonic() - t
+    with profile(activities=acts) as prof:
         t = time.monotonic()
         fn()
         synchronize(dev)
-        bare = time.monotonic() - t
-        with profile(activities=acts) as prof:
-            t = time.monotonic()
-            fn()
-            synchronize(dev)
-            traced = time.monotonic() - t
-        # the kernels' own events (an operator's self device time repeats
-        # its kernels' time)
-        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                       for e in prof.key_averages()
-                       if e.device_type == DeviceType.CUDA), reverse=True)
-        busy = sum(r[0] for r in rows)
-        if not rows:
-            print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
-                  "(the profiler saw no device activity)")
-            continue
-        print(f"  {label}: {bare * 1e3:.2f} ms; traced {traced * 1e3:.2f} ms, "
-              f"device busy {busy:.2f} ms, idle share "
-              f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
-        for ms, count, key in rows[:6]:
-            print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
+        traced = time.monotonic() - t
+    # the kernels' own events (an operator's self device time repeats its
+    # kernels' time)
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows)
+    if not rows:
+        print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
+              "(the profiler saw no device activity)")
+        return
+    print(f"  {label}: {bare * 1e3:.2f} ms; traced {traced * 1e3:.2f} ms, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
+    for ms, count, key in rows[:6]:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
 
 
 # ---------------------------------------------------------------------------
@@ -697,13 +839,22 @@ def main() -> int:
     cfg = get_config("qwen2.5-14b")
     mcfg = get_config("mamba2-130m")
     print("[2] kernel against plain version", flush=True)
+    from repro_torch.kernels.launch import CUDA_CORES, TENSOR_CORES
     for label, (desc, args) in small_cases(dev).items():
+        before = dict(desc.kernel.launches)
         check_forms(label, desc, args, "small")
+        check_route(desc, before, CUDA_CORES)
+    for label, (desc, args) in tc_cases(dev).items():
+        before = dict(desc.kernel.launches)
+        check_forms(label, desc, args, desc.kernel.name)
+        check_route(desc, before, TENSOR_CORES)
     cases = {**full_cases(cfg, dev), **ssd_full_cases(mcfg, dev)}
     errs, refs = {}, {}
     for label, (desc, args) in cases.items():
+        before = dict(desc.kernel.launches)
         errs[label], refs[label] = check_forms(label, desc, args,
                                                desc.kernel.name)
+        check_route(desc, before, desc.kernel.route(desc, args))
 
     print("[3] times at qwen2.5-14b and mamba2-130m width (bf16)",
           flush=True)
@@ -723,12 +874,13 @@ def main() -> int:
     for fname, label in (("matmul", "mm_be"), ("flash", "flash_be"),
                          ("ssd", "ssd_be")):
         fam = fams[fname]
-        desc = cases[label][0]
+        desc, args = cases[label]
+        route = fam.route(desc, args)
         for form in ("plain", "sliced", "persistent"):
             r = rows[(label, form)]
-            name = f"{fname}_{form}"
+            name = fam.symbol(route, form)
             summary.append({
-                "name": name, "route": "cuda",
+                "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,
                 "shape": desc.name,
                 "launches": counts[name] + m_counts[name],

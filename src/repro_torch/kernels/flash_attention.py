@@ -2,7 +2,8 @@
 
 Layout: q (BH, S, D); k, v (BH // group, T, D). Grid (BH, S/bq) — both axes
 parallel; the KV sweep runs inside the tile with running (m, l, acc). The
-CUDA kernel (``csrc/flash_attention.cu``) runs one block per task; the body
+CUDA kernel (``csrc/flash_attention.cu``) runs one block per task, on the
+tensor cores (wgmma + TMA) for bf16 and on the CUDA cores for f32; the body
 below is the plain PyTorch version of one grid cell, the reference's body.
 """
 from __future__ import annotations
@@ -13,9 +14,11 @@ import math
 import torch
 
 from repro_torch.core.descriptor import BlockMap, KernelDescriptor
-from repro_torch.kernels.launch import DTYPE_CODES, TileKernel
+from repro_torch.kernels.launch import (CUDA_CORES, DTYPE_CODES,
+                                        TENSOR_CORES, TileKernel, tma_ready)
 
-MAX_HEAD_DIM = 128       # the CUDA kernel keeps D/4 f32 values per thread
+MAX_HEAD_DIM = 128       # the f32 kernel keeps D/4 f32 values per thread
+TC_HEAD_DIMS = (64, 128)   # the bf16 kernel: one or two 128-byte TMA boxes
 
 
 def _pick_block(dim: int, target: int) -> int:
@@ -63,6 +66,21 @@ class FlashKernel(TileKernel):
     lib = "flash_attention"
     source = "src/repro_torch/kernels/csrc/flash_attention.cu"
     replaces = "src/repro/kernels/flash_attention.py:29"
+    routes = {TENSOR_CORES: "flash", CUDA_CORES: "flash_fma"}
+
+    def route(self, desc, args):
+        """Tensor cores for bf16 q, k, v with D = 64 or 128 that TMA can
+        read; CUDA cores for f32 (D <= 128)."""
+        q, k, v = args
+        if not q.dtype == k.dtype == v.dtype:
+            return None
+        D = q.shape[-1]
+        if q.dtype == torch.float32 and D <= MAX_HEAD_DIM:
+            return CUDA_CORES
+        if (q.dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+                and tma_ready(q, k, v)):
+            return TENSOR_CORES
+        return None
 
     def check(self, desc, args, outs) -> None:
         q, k, v = args
@@ -78,11 +96,12 @@ class FlashKernel(TileKernel):
                 or tuple(o.shape) != (BH, S, D) or D != s["D"]):
             raise ValueError(f"flash kernel: bad shapes q {tuple(q.shape)}, "
                              f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-        if D > MAX_HEAD_DIM:
-            raise ValueError(f"flash kernel takes D <= {MAX_HEAD_DIM}, "
-                             f"got {D}")
         if not all(t.is_contiguous() for t in (q, k, v, o)):
             raise ValueError("flash kernel takes contiguous tensors")
+        if self.route(desc, args) is None:
+            raise ValueError(f"no flash route takes {q.dtype} with D={D}: "
+                             f"f32 takes D <= {MAX_HEAD_DIM}, bf16 D in "
+                             f"{TC_HEAD_DIMS} with 16-byte aligned bases")
 
     def shape_args(self, desc, args, outs):
         q = args[0]
@@ -91,8 +110,7 @@ class FlashKernel(TileKernel):
         ints = (BH, S, s["T"], D, s["group"], s["bq"], int(s["causal"]),
                 s["q_offset"])
         return ([ctypes.c_int(v) for v in ints]
-                + [ctypes.c_float(1.0 / math.sqrt(D)),
-                   ctypes.c_int(DTYPE_CODES[q.dtype])])
+                + [ctypes.c_float(1.0 / math.sqrt(D))])
 
 
 FLASH = FlashKernel()

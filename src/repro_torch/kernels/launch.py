@@ -1,17 +1,21 @@
 """One kernel family's three launch forms, with their launch counts and
 their plain PyTorch versions.
 
-A ``TileKernel`` wraps the C entry points ``<name>_plain``,
-``<name>_sliced`` and ``<name>_persistent`` of ``csrc/<lib>.cu``. For
-tensors on the CPU a form runs its plain version, which walks the same grid
-cells tile by tile through the descriptor's ``body``; for CUDA tensors it
-launches the kernel, on PyTorch's current stream, or raises. There is no
-fallback from one to the other.
+A ``TileKernel`` wraps, for each of its routes, the C entry points
+``<prefix>_plain``, ``<prefix>_sliced`` and ``<prefix>_persistent`` of
+``csrc/<lib>.cu``. ``route(desc, args)`` picks the route of a launch in one
+place (the matmul and flash families: ``cuda-wgmma-tma``, tensor cores, for
+bf16, and ``cuda-fma``, CUDA cores, for f32); ``check`` refuses a launch
+that no route takes. For tensors on the CPU a form runs its plain version,
+which walks the same grid cells tile by tile through the descriptor's
+``body``; for CUDA tensors it launches the route's kernel, on PyTorch's
+current stream, or raises. There is no fallback from one to the other, and
+a route never changes on an error.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -22,24 +26,44 @@ from repro_torch.kernels import _build
 FORMS = ("plain", "sliced", "persistent")
 MAX_GRID_Y = 65535
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TENSOR_CORES, CUDA_CORES = "cuda-wgmma-tma", "cuda-fma"
+
+
+def tma_ready(*ts: torch.Tensor) -> bool:
+    """TMA reads a tensor whose base and row strides are 16-byte aligned:
+    contiguous, the innermost extent a multiple of 16 bytes."""
+    return all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               and (t.shape[-1] * t.element_size()) % 16 == 0 for t in ts)
 
 
 class TileKernel:
     """Base of a kernel family. Subclasses set ``name``, ``lib``,
-    ``source``, ``replaces`` and implement ``check`` and ``shape_args``."""
+    ``source``, ``replaces`` and ``routes`` and implement ``check`` and
+    ``shape_args``, and ``route`` where they have more than one route."""
 
-    name = ""          # prefix of the C entry points
+    name = ""          # the family
     lib = ""           # csrc/<lib>.cu
     source = ""        # CUDA source, path in the repository
     replaces = ""      # the TPU kernel it replaces, file:line
+    routes: Dict[str, str] = {}   # route -> prefix of its C entry points
 
     def __init__(self) -> None:
         # launches of each C entry point; a wrapper adds one exactly where
         # it launches its kernel
-        self.launches: Dict[str, int] = {f"{self.name}_{f}": 0
-                                         for f in FORMS}
+        self.launches: Dict[str, int] = {self.symbol(r, f): 0
+                                         for r in self.routes for f in FORMS}
+
+    def symbol(self, route: str, form: str) -> str:
+        """The C entry point of ``form`` on ``route``."""
+        return f"{self.routes[route]}_{form}"
 
     # -- per family ------------------------------------------------------------
+    def route(self, desc: KernelDescriptor, args) -> Optional[str]:
+        """The route that takes this launch, or None if none does. A
+        family with one route sends there every launch ``check`` passes."""
+        (only,) = self.routes
+        return only
+
     def check(self, desc: KernelDescriptor, args, outs) -> None:
         """Raise on what the kernel does not take."""
         raise NotImplementedError
@@ -137,7 +161,8 @@ class TileKernel:
 
     def _launch(self, form: str, desc, args, outs, extra: List) -> None:
         self.check(desc, args, outs)
-        fn = getattr(self.library(), f"{self.name}_{form}")
+        sym = self.symbol(self.route(desc, args), form)
+        fn = getattr(self.library(), sym)
         cargs = ([ctypes.c_void_p(t.data_ptr()) for t in (*args, *outs)]
                  + self.shape_args(desc, args, outs) + extra
                  + [ctypes.c_void_p(
@@ -145,7 +170,7 @@ class TileKernel:
         fn.argtypes = [type(a) for a in cargs]
         fn.restype = ctypes.c_int
         rc = fn(*cargs)
-        self.launches[f"{self.name}_{form}"] += 1
+        self.launches[sym] += 1
         if rc != 0:
-            raise RuntimeError(f"{self.name}_{form} failed to launch: CUDA "
-                               f"error {rc} ({desc.name})")
+            raise RuntimeError(f"{sym} failed to launch: CUDA error {rc} "
+                               f"({desc.name})")

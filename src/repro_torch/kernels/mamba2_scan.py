@@ -16,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.core.descriptor import BlockMap, KernelDescriptor
-from repro_torch.kernels.launch import DTYPE_CODES, TileKernel
+from repro_torch.kernels.launch import CUDA_CORES, DTYPE_CODES, TileKernel
 
 # the CUDA kernel's limits: of 256 threads, each owns at most 8 head-dim
 # columns of a row of y and an 8 x 4 patch of one head's state, and the
@@ -77,6 +77,7 @@ class SsdKernel(TileKernel):
     lib = "mamba2_scan"
     source = "src/repro_torch/kernels/csrc/mamba2_scan.cu"
     replaces = "src/repro/kernels/mamba2_scan.py:21"
+    routes = {CUDA_CORES: "ssd"}
 
     def check(self, desc, args, outs) -> None:
         x, dt, A, Bm, Cm, D = args

@@ -2,7 +2,8 @@
 
 Grid (nm, nn, nk): (m, n) parallel — the Tally-schedulable blocks — and k
 sequential. The CUDA kernel (``csrc/matmul.cu``) runs one block per (m, n)
-task and sweeps K inside it; ``matmul_body`` is the plain PyTorch version of
+task and sweeps K inside it, on the tensor cores (wgmma + TMA) for bf16 and
+on the CUDA cores for f32; ``matmul_body`` is the plain PyTorch version of
 one grid cell, exactly the reference's body.
 """
 from __future__ import annotations
@@ -12,7 +13,8 @@ import ctypes
 import torch
 
 from repro_torch.core.descriptor import BlockMap, KernelDescriptor
-from repro_torch.kernels.launch import DTYPE_CODES, TileKernel
+from repro_torch.kernels.launch import (CUDA_CORES, DTYPE_CODES,
+                                        TENSOR_CORES, TileKernel, tma_ready)
 
 
 def _pick_block(dim: int, target: int) -> int:
@@ -36,6 +38,18 @@ class MatmulKernel(TileKernel):
     lib = "matmul"
     source = "src/repro_torch/kernels/csrc/matmul.cu"
     replaces = "src/repro/kernels/matmul.py:26"
+    routes = {TENSOR_CORES: "matmul", CUDA_CORES: "matmul_fma"}
+
+    def route(self, desc, args):
+        """Tensor cores for bf16 A and B that TMA can read (K and N
+        multiples of 8); CUDA cores for f32, whose parity gate (1e-4) TF32
+        would break; any block shape on either."""
+        a, b = args
+        if a.dtype == b.dtype == torch.float32:
+            return CUDA_CORES
+        if a.dtype == b.dtype == torch.bfloat16 and tma_ready(a, b):
+            return TENSOR_CORES
+        return None
 
     def check(self, desc, args, outs) -> None:
         a, b = args
@@ -51,13 +65,16 @@ class MatmulKernel(TileKernel):
                              f"{tuple(b.shape)} -> {tuple(c.shape)} {c.dtype}")
         if not all(t.is_contiguous() for t in (a, b, c)):
             raise ValueError("matmul kernel takes contiguous tensors")
+        if self.route(desc, args) is None:
+            raise ValueError(f"no matmul route takes bf16 {M}x{K} @ {K}x{N}: "
+                             "the tensor cores need K and N multiples of 8 "
+                             "and 16-byte aligned bases")
 
     def shape_args(self, desc, args, outs):
         a, b = args
         M, K = a.shape
         s = desc.static
-        return [ctypes.c_int(v) for v in
-                (M, K, b.shape[1], s["bm"], s["bn"], DTYPE_CODES[a.dtype])]
+        return [ctypes.c_int(v) for v in (M, K, b.shape[1], s["bm"], s["bn"])]
 
 
 MATMUL = MatmulKernel()

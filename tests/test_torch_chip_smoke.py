@@ -36,6 +36,13 @@ def test_phases_on_cpu_at_reduced_width():
         assert b_ms > 0 and by in ("bytes", "operations")
         assert (cs.library_fn(label, desc, args, cfg.num_heads) is None) \
             == label.startswith("ssd")
+    # the edges of the tensor-core route: every one a bf16 launch that the
+    # route takes, rehearsed through its plain version
+    from repro_torch.kernels.launch import TENSOR_CORES
+    for label, (desc, args) in cs.tc_cases(dev).items():
+        assert desc.kernel.route(desc, args) == TENSOR_CORES, label
+        errs, _ = cs.check_forms(label, desc, args, desc.kernel.name)
+        assert errs == {"plain": 0.0, "sliced": 0.0, "persistent": 0.0}
     # BE work far beyond what the HP requests leave gaps for; the plain
     # versions count no launch, so the guard at the end must fire
     with pytest.raises(AssertionError, match="never launched"):
@@ -50,3 +57,42 @@ def test_model_phase_on_cpu_at_reduced_width():
     with pytest.raises(AssertionError, match="never launched"):
         cs.model_phase(cfg, torch.device("cpu"), prompts=(64, 40, 37, 20),
                        new_tokens=3, capacity=2, max_len=80)
+
+
+def test_route_guards():
+    """A bf16 launch counted on a CUDA-core entry point fails the run; the
+    main path's entry points are the tensor-core ones and the SSD's."""
+    from repro_torch import kernels
+    counts = {k: 0 for fam in kernels.FAMILIES for k in fam.launches}
+    cs.cuda_core_guard(counts, "main path")
+    assert cs.main_path_symbols() == [
+        f"{n}_{f}" for n in ("matmul", "flash", "ssd")
+        for f in ("plain", "sliced", "persistent")]
+    counts["flash_fma_sliced"] = 1
+    with pytest.raises(AssertionError, match="CUDA-core route"):
+        cs.cuda_core_guard(counts, "main path")
+
+
+def test_p_rounding_slack():
+    """The flash gate's allowance for P rounded to bf16: 2^-8 max|v| over
+    the square root of the keys each query row attends; none for f32 or
+    another family."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    from repro_torch.kernels.matmul import matmul_desc
+    bf = torch.bfloat16
+    v = torch.zeros(2, 16, 64, dtype=bf)
+    v[0, 3, 5] = -4.0
+    args = (torch.zeros(4, 8, 64, dtype=bf), torch.zeros_like(v), v)
+    d = flash_attention_desc(4, 8, 16, 64, 2, bf, causal=True, q_offset=4)
+    got = cs.p_rounding_slack(d, args)
+    n = torch.arange(8) + 5.0
+    assert got.shape == (1, 8, 1)
+    torch.testing.assert_close(got[0, :, 0], 2.0 ** -8 * 4.0 / n.sqrt())
+    d = flash_attention_desc(4, 8, 16, 64, 2, bf, causal=False)
+    torch.testing.assert_close(cs.p_rounding_slack(d, args)[0, :, 0],
+                               torch.full((8,), 2.0 ** -8))
+    assert cs.p_rounding_slack(
+        flash_attention_desc(4, 8, 16, 64, 2, causal=False),
+        tuple(t.float() for t in args)) == 0.0
+    assert cs.p_rounding_slack(matmul_desc(8, 8, 8, bf),
+                               (torch.zeros(8, 8, dtype=bf),) * 2) == 0.0

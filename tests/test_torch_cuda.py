@@ -1,6 +1,10 @@
 """On-card checks of the CUDA kernels against their plain versions, at the
-small parity shapes. They need a CUDA card and skip without one; the card's
-full check is ``python3 chip_smoke.py``."""
+small parity shapes (f32, the CUDA-core route) and at the edges of the
+tensor-core route (bf16). They need a CUDA card and skip without one; the
+card's full check is ``python3 chip_smoke.py``."""
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -8,7 +12,11 @@ import torch
 from repro_torch.core import transforms as T
 from repro_torch.core.descriptor import build_plain, new_outputs
 from repro_torch.kernels.flash_attention import flash_attention_desc
+from repro_torch.kernels.launch import CUDA_CORES, TENSOR_CORES
 from repro_torch.kernels.matmul import matmul_desc
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -58,9 +66,56 @@ def test_kernel_matches_plain_version(cuda, form):
                 assert torch.equal(done.cpu(), ref_done.cpu())
                 start = pre.watermark(start, 2)
         torch.cuda.synchronize()
-        assert fam.launches[f"{fam.name}_{form}"] > before[
-            f"{fam.name}_{form}"]
+        sym = fam.symbol(CUDA_CORES, form)
+        assert fam.launches[sym] > before[sym]
         torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("form", ["plain", "sliced", "persistent"])
+@pytest.mark.parametrize("label", list(cs.TC_EDGES))
+def test_tensor_core_route_matches_plain_version(cuda, form, label):
+    """Each bf16 edge case of chip_smoke.py takes the tensor-core route in
+    each form and agrees with the plain version at chip_smoke.py's gates;
+    the persistent form runs 3 workers, so a worker runs several tasks a
+    launch (the ring's phase carries over), with budgets 1, 2 and 5, each
+    with its own ``done`` equal to the plain version's."""
+    desc, args = cs.tc_cases(cuda)[label]
+    fam = desc.kernel
+    assert fam.route(desc, args) == TENSOR_CORES
+    want = new_outputs(desc, cuda, zero=True)
+    fam.plain_version(desc, args, want)
+    before = dict(fam.launches)
+    runs = []
+    if form == "plain":
+        got = new_outputs(desc, cuda, zero=True)
+        fam.plain(desc, args, got)
+        runs.append(got)
+    elif form == "sliced":
+        got = new_outputs(desc, cuda, zero=True)
+        for off, ln in T.slice_plan(desc, 3):
+            fam.sliced(T.make_slice(desc, off, ln), args, got)
+        runs.append(got)
+    else:
+        W = min(3, desc.num_blocks)
+        for budget in (1, 2, 5):
+            got, start = new_outputs(desc, cuda, zero=True), 0
+            while start < desc.num_blocks:
+                done = fam.persistent(desc, W, start, budget, args, got)
+                ref_done = fam.persistent_version(
+                    desc, W, start, budget, args,
+                    new_outputs(desc, cuda, zero=True))
+                assert torch.equal(done.cpu(), ref_done.cpu())
+                start = T.preempt_watermark(start, budget, W,
+                                            desc.num_blocks)
+            runs.append(got)
+    torch.cuda.synchronize()
+    assert fam.launches[fam.symbol(TENSOR_CORES, form)] > before[
+        fam.symbol(TENSOR_CORES, form)]
+    assert fam.launches[fam.symbol(CUDA_CORES, form)] == before[
+        fam.symbol(CUDA_CORES, form)]
+    for got in runs:
+        cs.compare(label, got[0], want[0], fam.name,
+                   cs.p_rounding_slack(desc, args))
 
 
 def _ssd_args(dev, B, S, NH, HD, DS, dtype=torch.float32, seed=3):

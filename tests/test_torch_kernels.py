@@ -239,3 +239,109 @@ def test_ssd_check_raises_on_what_the_kernel_does_not_take():
     np.testing.assert_allclose(
         y.numpy(), ops.mamba2_scan(wide.contiguous(), dtv, A, Bm, Cm, D,
                                    chunk=8)[0].numpy(), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Routes: tensor cores for bf16, CUDA cores for f32, picked in one place
+# ---------------------------------------------------------------------------
+
+def _inputs(desc, dtype):
+    """Uninitialised CPU inputs of ``desc``'s shapes in ``dtype``: a route
+    reads only types, shapes, contiguity and alignment."""
+    s = desc.static
+    if desc.kernel.name == "matmul":
+        M, N = desc.out_shape[0][0]
+        K = desc.in_maps[0].block_shape[1] * desc.grid[2]
+        return torch.empty(M, K, dtype=dtype), torch.empty(K, N, dtype=dtype)
+    BH, S, D = desc.out_shape[0][0]
+    kv = (BH // s["group"], s["T"], D)
+    return (torch.empty(BH, S, D, dtype=dtype), torch.empty(kv, dtype=dtype),
+            torch.empty(kv, dtype=dtype))
+
+
+def _main_path():
+    from repro_torch.kernels.matmul import matmul_desc
+    bf = torch.bfloat16
+    return {"mm_hp_up": matmul_desc(512, 5120, 13824, bf),
+            "mm_hp_down": matmul_desc(512, 13824, 5120, bf),
+            "mm_be": matmul_desc(4096, 5120, 13824, bf),
+            "flash_hp": flash_attention_desc(40, 512, 512, 128, 5, bf),
+            "flash_be": flash_attention_desc(80, 2048, 2048, 128, 5, bf)}
+
+
+@pytest.mark.parametrize("label", ["mm_hp_up", "mm_hp_down", "mm_be",
+                                   "flash_hp", "flash_be"])
+def test_route_takes_tensor_cores_on_the_main_path(label):
+    """Every bf16 launch of the main path, at its descriptor's defaults,
+    goes to wgmma + TMA, and the wrapper's checks accept it."""
+    from repro_torch.kernels.launch import TENSOR_CORES
+    desc = _main_path()[label]
+    args = _inputs(desc, torch.bfloat16)
+    assert desc.kernel.route(desc, args) == TENSOR_CORES
+    desc.kernel.check(desc, args, new_outputs(desc, torch.device("cpu")))
+
+
+def _f32_cases():
+    from repro_torch.kernels.matmul import matmul_desc
+    return {
+        # the parity geometries of the transform and on-card tests
+        "mm parity": matmul_desc(96, 64, 48, bm=16, bk=32, bn=16),
+        "flash parity": flash_attention_desc(6, 32, 32, 8, 2, bq=8, bk=8),
+        "flash q_offset": flash_attention_desc(6, 32, 40, 8, 2, q_offset=8,
+                                               bq=8, bk=8),
+        # f32 at a main-path shape: still the CUDA cores (no TF32)
+        "mm 512x5120x13824 f32": matmul_desc(512, 5120, 13824),
+        "flash D=128 f32": flash_attention_desc(8, 64, 64, 128, 2),
+    }
+
+
+@pytest.mark.parametrize("label", list(_f32_cases()))
+def test_route_takes_cuda_cores_for_f32(label):
+    from repro_torch.kernels.launch import CUDA_CORES
+    desc = _f32_cases()[label]
+    args = _inputs(desc, torch.float32)
+    assert desc.kernel.route(desc, args) == CUDA_CORES
+    desc.kernel.check(desc, args, new_outputs(desc, torch.device("cpu")))
+
+
+def test_check_raises_on_a_launch_no_route_takes():
+    """bf16 that TMA cannot read (K or N not a multiple of 8, a base off
+    the 16-byte grid), bf16 flash with D outside (64, 128), f32 flash with
+    D > 128: refused before any launch, never sent to the other route."""
+    from repro_torch.kernels.matmul import MATMUL, matmul_desc
+    bf = torch.bfloat16
+    cpu = torch.device("cpu")
+    d = matmul_desc(64, 12, 32, bf)
+    a, b = _inputs(d, bf)
+    assert MATMUL.route(d, (a, b)) is None
+    with pytest.raises(ValueError, match="no matmul route"):
+        MATMUL.check(d, (a, b), new_outputs(d, cpu))
+    d = matmul_desc(64, 64, 32, bf)
+    a, b = _inputs(d, bf)
+    shifted = torch.empty(64 * 64 + 1, dtype=bf)[1:].view(64, 64)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="no matmul route"):
+        MATMUL.check(d, (shifted, b), new_outputs(d, cpu))
+    for D, dt in ((32, bf), (256, torch.float32)):
+        fd = flash_attention_desc(4, 64, 64, D, 2, dt)
+        args = _inputs(fd, dt)
+        assert fd.kernel.route(fd, args) is None
+        with pytest.raises(ValueError, match="no flash route"):
+            fd.kernel.check(fd, args, new_outputs(fd, cpu))
+
+
+def test_every_c_entry_point_has_its_counter():
+    """The C symbols of csrc/*.cu are exactly the families' counted entry
+    points: each route's plain, sliced and persistent forms."""
+    import re
+    from pathlib import Path
+    from repro_torch import kernels
+    from repro_torch.kernels.launch import FORMS
+    csrc = Path(kernels.__file__).parent / "csrc"
+    for fam in kernels.FAMILIES:
+        text = (csrc / f"{fam.lib}.cu").read_text()
+        exported = text[text.index('extern "C" {'):]
+        symbols = set(re.findall(r"^int (\w+)\(", exported, re.M))
+        assert symbols == set(fam.launches)
+        assert set(fam.launches) == {fam.symbol(r, f) for r in fam.routes
+                                     for f in FORMS}
