@@ -11,14 +11,15 @@ Phases, each raising on failure:
      against its plain PyTorch version, at the small parity shapes of the
      transform tests (f32, the CUDA-core route), at the edges of the
      tensor-core route (bf16: K not a multiple of 64, 256-wide blocks,
-     chunked-prefill and non-causal flash, D = 64), at the qwen2.5-14b
+     chunked-prefill and non-causal flash, D = 64; the SSD scan at chunk
+     lengths 256, 150, 64 and 1 and at DS = 64), at the qwen2.5-14b
      shapes of the main path and at the mamba2-130m shapes of the SSD scan
      (bf16);
-  3. times at those shapes: kernel (on outputs made before the timed
-     window), plain version, one library call as yardstick where one
-     PyTorch call computes the same function (timed here only, never used
-     by the port) and the bound max(flops / 989 TFLOP/s, bytes / 3.35
-     TB/s);
+  3. times at those shapes (the L = 150 and L = 1 prefills in the plain
+     form only): kernel (on outputs made before the timed window), plain
+     version, one library call as yardstick where one PyTorch call
+     computes the same function (timed here only, never used by the port)
+     and the bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
   4. the main path: a TallyServer on the card, a best-effort "training"
      client with the full-width matmul, flash attention and SSD scan, and a
      high-priority "inference" client sending prefill requests of one
@@ -28,8 +29,8 @@ Phases, each raising on failure:
      every prefill of every layer runs the SSD kernel, and each prompt's
      prefill is held against the torch-ops path.
 Phases 4 and 5 each zero the launch counts before and read them after;
-every entry point of the path must have run, and no bf16 matmul or flash
-launch may have taken the CUDA-core (f32) route. The line before the last
+every entry point of the path must have run, and no bf16 launch may have
+taken a CUDA-core (f32) route. The line before the last
 is the kernels' JSON summary, the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -239,7 +240,10 @@ def small_cases(dev):
 # the 64-deep stage; 256-wide blocks, walked as 128 x 128 sub-tiles;
 # chunked prefill (T != S, q_offset > 0); non-causal with a ragged last key
 # tile; G = 5 with D = 64, where bq = 192 leaves the second pass's second
-# consumer without rows
+# consumer without rows; the SSD scan at mamba2-130m width (B = 3) with the
+# chunk lengths of phase 5's prompts: 256-token pieces cut across chunks of
+# 150 and 64 tokens and hold 256 chunks of one token, S = 300 and 257 end
+# in a ragged slab; and DS = 64, where one consumer holds the whole state
 TC_EDGES = {
     "mm_tc 256x200x384 b128": dict(M=256, K=200, N=384, blk=128),
     "mm_tc 512x320x512 b256": dict(M=512, K=320, N=512, blk=256),
@@ -249,17 +253,27 @@ TC_EDGES = {
         dict(S=256, T=320, D=128, causal=False, q_offset=0, bq=256),
     "flash_tc D=64 G=5 S=T=384":
         dict(S=384, T=384, D=64, causal=True, q_offset=0, bq=192),
+    "ssd_tc L=256 S=512": dict(S=512, chunk=256, DS=128),
+    "ssd_tc L=150 S=300": dict(S=300, chunk=256, DS=128),
+    "ssd_tc L=64 S=192": dict(S=192, chunk=64, DS=128),
+    "ssd_tc L=1 S=257": dict(S=257, chunk=256, DS=128),
+    "ssd_tc DS=64 S=512": dict(S=512, chunk=256, DS=64),
 }
 
 
 def tc_cases(dev):
-    """The ``TC_EDGES`` launches (flash: 10 heads, G = 5)."""
+    """The ``TC_EDGES`` launches (flash: 10 heads, G = 5; the SSD: B = 3,
+    24 heads of 64)."""
     from repro_torch.kernels.flash_attention import flash_attention_desc
     from repro_torch.kernels.matmul import matmul_desc
     rng = np.random.default_rng(11)
     bf = torch.bfloat16
     cases = {}
     for label, g in TC_EDGES.items():
+        if label.startswith("ssd"):
+            cases[label] = ssd_case(rng, dev, 3, g["S"], 24, 64, g["DS"],
+                                    g["chunk"], bf)
+            continue
         if label.startswith("mm"):
             M, K, N = g["M"], g["K"], g["N"]
             cases[label] = (matmul_desc(M, K, N, bf, bm=g["blk"],
@@ -379,9 +393,24 @@ def cuda_ms(fn, reps: int, warmup: int = 1, hide_host: bool = True
     return float(np.median(times))
 
 
+def launch_bytes(desc) -> float:
+    """The bytes a launch must move, each input read once and each output
+    written once. For the SSD they come from its tensors: x, dt, A, B, C
+    and D read, y and the f32 state h written; the descriptor's count is
+    the reference's, which leaves h out and counts dt at x's itemsize. For
+    the matmul and flash attention the descriptor's count matches their
+    tensors."""
+    if desc.kernel.name != "ssd":
+        return desc.bytes_accessed
+    ((B, S, NH, HD), dtype), ((_, _, _, DS), _) = desc.out_shape
+    io = dtype.itemsize
+    return float(2 * B * S * NH * HD * io + 2 * B * S * DS * io
+                 + B * S * NH * 4 + 2 * NH * 4 + B * NH * HD * DS * 4)
+
+
 def bound(desc):
     t_ops = desc.flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = desc.bytes_accessed / PEAK_BYTES * 1e3
+    t_bytes = launch_bytes(desc) / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
 
@@ -409,11 +438,12 @@ def library_fn(label, desc, args, heads: int):
                                                   is_causal=s["causal"])
 
 
-def time_cases(cases, reps: int, heads: int):
-    """Each form of each case timed on outputs made before the timed window
-    (a fresh zeroed f32 output of mm_be alone is 226 MB to write). The
-    matmul kernel writes f32, as the reference's does; ``torch.matmul``,
-    the yardstick, writes bf16."""
+def time_cases(cases, reps: int, heads: int, plain_only=()):
+    """Each form of each case (the plain form alone for the labels in
+    ``plain_only``) timed on outputs made before the timed window (a fresh
+    zeroed f32 output of mm_be alone is 226 MB to write). The matmul kernel
+    writes f32, as the reference's does; ``torch.matmul``, the yardstick,
+    writes bf16."""
     from repro_torch.core.descriptor import new_outputs
     rows = {}
     for label, (desc, args) in cases.items():
@@ -425,7 +455,9 @@ def time_cases(cases, reps: int, heads: int):
         # the host's
         plain_ms = cuda_ms(lambda: run_form(desc, args, "plain", False, outs),
                            1, warmup=0, hide_host=False)
-        for form in ("plain", "sliced", "persistent"):
+        forms = (("plain",) if label in plain_only
+                 else ("plain", "sliced", "persistent"))
+        for form in forms:
             ms = cuda_ms(lambda: run_form(desc, args, form, True, outs), reps)
             rows[(label, form)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
@@ -858,9 +890,11 @@ def main() -> int:
 
     print("[3] times at qwen2.5-14b and mamba2-130m width (bf16)",
           flush=True)
+    # the HP prefills of L = 150 and L = 1 in the plain form, as served
     rows = time_cases({k: v for k, v in cases.items()
-                       if not k.startswith("ssd_hp_s")}, REPS,
-                      cfg.num_heads)
+                       if k not in ("ssd_hp_s100", "ssd_hp_s64")}, REPS,
+                      cfg.num_heads, plain_only=("ssd_hp_s300",
+                                                 "ssd_hp_s257"))
 
     print("[4] main path: Tally server, HP inference + BE training",
           flush=True)

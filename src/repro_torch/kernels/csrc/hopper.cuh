@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks of the tensor-core kernels: TMA tensor
-// maps and loads, mbarriers, wgmma shared-memory descriptors and
-// instructions, and setmaxnreg.
+// maps and loads, mbarriers, named barriers, the async-proxy fence, wgmma
+// shared-memory descriptors and instructions, and setmaxnreg.
 //
 // Every operand tile is bf16 and 128 bytes (64 values) wide along its
 // contiguous axis, loaded by TMA with the 128-byte swizzle into a
@@ -52,16 +52,17 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` (2 or 3) dims, innermost first: `dims` in
+// A bf16 tensor map of `rank` (2 to 4) dims, innermost first: `dims` in
 // values, `strides` the byte strides of dims 1.. (multiples of 16), `box`
 // the tile in values with box[0] = 64 (128 bytes, the swizzle's width).
 // Out-of-bounds values load as zeros. Returns 0 or a CUDA error code.
 inline int make_map(CUtensorMap* map, const void* base, int rank,
                     const cuuint64_t* dims, const cuuint64_t* strides,
                     const cuuint32_t* box) {
+  if (rank < 2 || rank > 4) return (int)cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
                   const_cast<void*>(base), dims, strides, box, unit,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -161,6 +162,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Threads' own stores to shared memory become visible to the async proxy
+// (wgmma's shared-memory operands, TMA): each writing thread fences before
+// the barrier that hands the data over.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A named barrier over `count` threads (a multiple of 32), apart from the
+// block-wide barrier 0 that __syncthreads uses
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Device: warp roles
 // ---------------------------------------------------------------------------
@@ -246,6 +271,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TransB));
+}
+
+// D(64 x 64) += A(64 x 16) B(16 x 64), A and B in shared memory. TransA = 1
+// reads an M-major A (the 64 values of a row run along M; a k16 step is 16
+// rows), TransB = 1 an N-major B, as for the other wrappers.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TransA), "n"(TransB));
 }
 
 // D(64 x 128) += A(64 x 16) B(16 x 128), A in registers (the accumulator

@@ -6,8 +6,11 @@ cluster-level fallback of paper §6 for kernels with inter-block
 dependencies. The reference keeps the running state h (NH, HD, DS) in VMEM
 scratch across the chunk steps and writes it out every chunk (last wins).
 The port's descriptor has no scratch: the plain version carries the state
-in the f32 ``hout`` block itself, and the CUDA kernel
-(``csrc/mamba2_scan.cu``) in shared memory, one head at a time.
+in the f32 ``hout`` block itself. The CUDA kernel (``csrc/mamba2_scan.cu``)
+runs one head of one batch element a block, in two routes: bf16 on the
+tensor cores (``ssd_*``: TMA loads, ``wgmma`` products, the state in f32
+registers), f32 on the CUDA cores (``ssd_fma_*``: the state in shared
+memory).
 """
 from __future__ import annotations
 
@@ -16,14 +19,19 @@ import ctypes
 import torch
 
 from repro_torch.core.descriptor import BlockMap, KernelDescriptor
-from repro_torch.kernels.launch import CUDA_CORES, DTYPE_CODES, TileKernel
+from repro_torch.kernels.launch import (CUDA_CORES, DTYPE_CODES,
+                                       TENSOR_CORES, TileKernel, tma_ready)
 
-# the CUDA kernel's limits: of 256 threads, each owns at most 8 head-dim
-# columns of a row of y and an 8 x 4 patch of one head's state, and the
-# chunk's cumsum lives in shared memory
+# the CUDA-core routine's limits: of 256 threads, each owns at most 8
+# head-dim columns of a row of y and an 8 x 4 patch of one head's state,
+# and the chunk's cumsum lives in shared memory
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
 MAX_CHUNK = 4096
+# the tensor-core routine's: a row of x is one 128-byte TMA box (64 bf16),
+# the state one or two 64-column wgmma tiles; any chunk length
+TC_HEAD_DIM = 64
+TC_STATE_DIMS = (64, 128)
 
 
 def chunk_len(S: int, chunk: int) -> int:
@@ -77,7 +85,25 @@ class SsdKernel(TileKernel):
     lib = "mamba2_scan"
     source = "src/repro_torch/kernels/csrc/mamba2_scan.cu"
     replaces = "src/repro/kernels/mamba2_scan.py:21"
-    routes = {CUDA_CORES: "ssd"}
+    routes = {TENSOR_CORES: "ssd", CUDA_CORES: "ssd_fma"}
+
+    def route(self, desc, args):
+        """Tensor cores for bf16 x, Bm, Cm with HD = 64 and DS = 64 or 128
+        that TMA can read; CUDA cores for f32 (HD <= 64, DS <= 128, chunks
+        of at most 4096 tokens). The dtypes of dt, A, D and the outputs are
+        ``check``'s."""
+        x, Bm, Cm = args[0], args[3], args[4]
+        if not x.dtype == Bm.dtype == Cm.dtype:
+            return None
+        HD, DS = x.shape[-1], Bm.shape[-1]
+        if x.dtype == torch.bfloat16:
+            return (TENSOR_CORES if HD == TC_HEAD_DIM
+                    and DS in TC_STATE_DIMS and tma_ready(x, Bm, Cm)
+                    else None)
+        if (x.dtype == torch.float32 and HD <= MAX_HEAD_DIM
+                and DS <= MAX_STATE_DIM and desc.static["L"] <= MAX_CHUNK):
+            return CUDA_CORES
+        return None
 
     def check(self, desc, args, outs) -> None:
         x, dt, A, Bm, Cm, D = args
@@ -100,14 +126,15 @@ class SsdKernel(TileKernel):
                 or desc.static["L"] * desc.grid[1] != S):
             raise ValueError(f"ssd kernel: bad shapes {bad} for x "
                              f"{tuple(x.shape)} ({desc.name})")
-        if HD > MAX_HEAD_DIM or DS > MAX_STATE_DIM:
-            raise ValueError(f"ssd kernel takes HD <= {MAX_HEAD_DIM} and "
-                             f"DS <= {MAX_STATE_DIM}, got HD={HD} DS={DS}")
-        if desc.static["L"] > MAX_CHUNK:
-            raise ValueError(f"ssd kernel takes chunks of at most "
-                             f"{MAX_CHUNK} tokens, got {desc.static['L']}")
         if not all(t.is_contiguous() for t in (*args, *outs)):
             raise ValueError("ssd kernel takes contiguous tensors")
+        if self.route(desc, args) is None:
+            raise ValueError(
+                f"no ssd route takes {x.dtype} with HD={HD} DS={DS} "
+                f"L={desc.static['L']}: f32 takes HD <= {MAX_HEAD_DIM}, "
+                f"DS <= {MAX_STATE_DIM} and L <= {MAX_CHUNK}; bf16 takes "
+                f"HD = {TC_HEAD_DIM}, DS in {TC_STATE_DIMS} with 16-byte "
+                "aligned x, Bm and Cm")
 
     def shape_args(self, desc, args, outs):
         x, Bm = args[0], args[3]

@@ -96,3 +96,30 @@ def test_p_rounding_slack():
         tuple(t.float() for t in args)) == 0.0
     assert cs.p_rounding_slack(matmul_desc(8, 8, 8, bf),
                                (torch.zeros(8, 8, dtype=bf),) * 2) == 0.0
+
+
+def test_bound_counts_each_ssd_tensor_once():
+    """The SSD's bound moves each tensor of the launch once: x, dt, A, B, C
+    and D read, y and the f32 state h written (the descriptor keeps the
+    reference's count, without h and with dt at x's itemsize). The
+    matmul's and flash's bounds stay the descriptor's."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    from repro_torch.kernels.mamba2_scan import mamba2_scan_desc
+    from repro_torch.kernels.matmul import matmul_desc
+    bf = torch.bfloat16
+    be = mamba2_scan_desc(264, 512, 24, 64, 128, 256, bf)
+    hp = mamba2_scan_desc(1, 512, 24, 64, 128, 256, bf)
+    assert cs.launch_bytes(be) == 1_120_272_576
+    assert be.bytes_accessed == 906_166_272
+    assert cs.bound(be) == (pytest.approx(0.33441, rel=1e-4), "bytes")
+    assert cs.launch_bytes(hp) == 4_243_648
+    assert cs.bound(hp) == (pytest.approx(1.2668e-3, rel=1e-4), "bytes")
+    for d in (matmul_desc(4096, 5120, 13824, bf),
+              matmul_desc(512, 13824, 5120, bf),
+              flash_attention_desc(80, 2048, 2048, 128, 5, bf),
+              flash_attention_desc(40, 512, 512, 128, 5, bf)):
+        t_ops = d.flops / cs.PEAK_BF16_FLOPS * 1e3
+        t_bytes = d.bytes_accessed / cs.PEAK_BYTES * 1e3
+        assert cs.launch_bytes(d) == d.bytes_accessed
+        assert cs.bound(d) == (max(t_ops, t_bytes), "operations"
+                               if t_ops >= t_bytes else "bytes")

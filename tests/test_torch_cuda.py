@@ -1,6 +1,6 @@
 """On-card checks of the CUDA kernels against their plain versions, at the
 small parity shapes (f32, the CUDA-core route) and at the edges of the
-tensor-core route (bf16). They need a CUDA card and skip without one; the
+tensor-core route (bf16: matmul, flash attention and the SSD scan). They need a CUDA card and skip without one; the
 card's full check is ``python3 chip_smoke.py``."""
 import sys
 from pathlib import Path
@@ -76,9 +76,10 @@ def test_kernel_matches_plain_version(cuda, form):
 def test_tensor_core_route_matches_plain_version(cuda, form, label):
     """Each bf16 edge case of chip_smoke.py takes the tensor-core route in
     each form and agrees with the plain version at chip_smoke.py's gates;
-    the persistent form runs 3 workers, so a worker runs several tasks a
-    launch (the ring's phase carries over), with budgets 1, 2 and 5, each
-    with its own ``done`` equal to the plain version's."""
+    the persistent form runs 3 workers (2 for the SSD's 3 batch tasks), so
+    a worker runs several tasks a launch (the ring's phase carries over),
+    with budgets 1, 2 and 5, each with its own ``done`` equal to the plain
+    version's."""
     desc, args = cs.tc_cases(cuda)[label]
     fam = desc.kernel
     assert fam.route(desc, args) == TENSOR_CORES
@@ -96,7 +97,7 @@ def test_tensor_core_route_matches_plain_version(cuda, form, label):
             fam.sliced(T.make_slice(desc, off, ln), args, got)
         runs.append(got)
     else:
-        W = min(3, desc.num_blocks)
+        W = min(2 if fam.name == "ssd" else 3, desc.num_blocks)
         for budget in (1, 2, 5):
             got, start = new_outputs(desc, cuda, zero=True), 0
             while start < desc.num_blocks:
@@ -114,8 +115,9 @@ def test_tensor_core_route_matches_plain_version(cuda, form, label):
     assert fam.launches[fam.symbol(CUDA_CORES, form)] == before[
         fam.symbol(CUDA_CORES, form)]
     for got in runs:
-        cs.compare(label, got[0], want[0], fam.name,
-                   cs.p_rounding_slack(desc, args))
+        for k, (g, w) in enumerate(zip(got, want)):
+            cs.compare(f"{label} out{k}", g, w, fam.name,
+                       cs.p_rounding_slack(desc, args))
 
 
 def _ssd_args(dev, B, S, NH, HD, DS, dtype=torch.float32, seed=3):
@@ -141,15 +143,16 @@ SSD_SHAPES = [(3, 24, 2, 4, 4, 8), (2, 13, 2, 4, 4, 8), (2, 20, 3, 8, 5, 32),
 @pytest.mark.parametrize("form", ["plain", "sliced", "persistent"])
 @pytest.mark.parametrize("shape", SSD_SHAPES)
 def test_ssd_kernel_matches_plain_version(cuda, form, shape):
-    """f32: only the order of the sums differs (y within 1e-4 relative to
-    max|y|, h within 1e-4 relative to max|h|); persistent ``done`` equal."""
+    """f32, the CUDA-core route (``ssd_fma_*``): only the order of the sums
+    differs (y within 1e-4 relative to max|y|, h within 1e-4 relative to
+    max|h|); persistent ``done`` equal."""
     from repro_torch.kernels.mamba2_scan import SSD, mamba2_scan_desc
     B, S, NH, HD, DS, chunk = shape
     args = _ssd_args(cuda, B, S, NH, HD, DS)
     desc = mamba2_scan_desc(B, S, NH, HD, DS, chunk)
     want = new_outputs(desc, cuda, zero=True)
     SSD.plain_version(desc, args, want)
-    before = SSD.launches[f"ssd_{form}"]
+    before = SSD.launches[f"ssd_fma_{form}"]
     got = new_outputs(desc, cuda, zero=True)
     if form == "plain":
         SSD.plain(desc, args, got)
@@ -165,7 +168,7 @@ def test_ssd_kernel_matches_plain_version(cuda, form, shape):
             assert torch.equal(done.cpu(), ref_done.cpu())
             start = T.preempt_watermark(start, 1, 2, desc.num_blocks)
     torch.cuda.synchronize()
-    assert SSD.launches[f"ssd_{form}"] > before
+    assert SSD.launches[f"ssd_fma_{form}"] > before
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         err = (g - w).abs().max().item()
@@ -173,18 +176,20 @@ def test_ssd_kernel_matches_plain_version(cuda, form, shape):
 
 
 def test_ssd_kernel_bf16_full_width(cuda):
-    """bf16 x, B, C at mamba2-130m width: y within 2 bf16 ulps of the plain
-    version, the ulp taken no smaller than at 2^-8 max|y| (f32 sums of the
-    same terms in another order, then one rounding; the sums' error scales
-    with the terms, which are of the order of max|y|, not with |y|), h
-    within 1e-3 of max|h|."""
+    """bf16 x, B, C at mamba2-130m width, the tensor-core route: y within 2
+    bf16 ulps of the plain version, the ulp taken no smaller than at 2^-8
+    max|y| (f32 sums of the same terms in another order, then one rounding;
+    the sums' error scales with the terms, which are of the order of
+    max|y|, not with |y|), h within 1e-3 of max|h|."""
     from repro_torch.kernels.mamba2_scan import SSD, mamba2_scan_desc
     args = _ssd_args(cuda, 2, 512, 24, 64, 128, torch.bfloat16)
     desc = mamba2_scan_desc(2, 512, 24, 64, 128, 256, torch.bfloat16)
     want = new_outputs(desc, cuda)
     SSD.plain_version(desc, args, want)
+    before = SSD.launches["ssd_plain"]
     got = build_plain(desc)(*args)
     torch.cuda.synchronize()
+    assert SSD.launches["ssd_plain"] == before + 1
     y, h = got
     yw, hw = want
     ulp = torch.exp2(torch.floor(torch.log2(yw.float().abs().clamp_min(

@@ -345,3 +345,148 @@ def test_every_c_entry_point_has_its_counter():
         assert symbols == set(fam.launches)
         assert set(fam.launches) == {fam.symbol(r, f) for r in fam.routes
                                      for f in FORMS}
+
+
+# ---------------------------------------------------------------------------
+# The SSD's routes, and the tensor-core route's roundings emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def _ssd_launch(S, dtype, HD=64, DS=128, B=1, NH=24, chunk=256):
+    desc = mamba2_scan_desc(B, S, NH, HD, DS, chunk, dtype)
+    f32 = torch.float32
+    args = (torch.empty(B, S, NH, HD, dtype=dtype),
+            torch.empty(B, S, NH, dtype=f32), torch.empty(NH, dtype=f32),
+            torch.empty(B, S, DS, dtype=dtype),
+            torch.empty(B, S, DS, dtype=dtype), torch.empty(NH, dtype=f32))
+    return desc, args
+
+
+@pytest.mark.parametrize("S,L", [(512, 256), (300, 150), (257, 1),
+                                 (100, 100), (64, 64)])
+def test_ssd_route_takes_tensor_cores_for_bf16(S, L):
+    """bf16 at mamba2-130m width (HD 64, DS 128), at every chunk length
+    that phase 5's prompts make, goes to wgmma + TMA; so does DS = 64."""
+    from repro_torch.kernels.launch import TENSOR_CORES
+    for DS in (128, 64):
+        desc, args = _ssd_launch(S, torch.bfloat16, DS=DS)
+        assert desc.static["L"] == L
+        assert SSD.route(desc, args) == TENSOR_CORES
+        SSD.check(desc, args, new_outputs(desc, torch.device("cpu")))
+
+
+@pytest.mark.parametrize("S", [512, 300, 257])
+def test_ssd_route_takes_cuda_cores_for_f32(S):
+    from repro_torch.kernels.launch import CUDA_CORES
+    desc, args = _ssd_launch(S, torch.float32)
+    assert SSD.route(desc, args) == CUDA_CORES
+    SSD.check(desc, args, new_outputs(desc, torch.device("cpu")))
+
+
+def test_ssd_check_raises_on_a_launch_no_route_takes():
+    """bf16 with HD != 64, DS = 96 or a base off the 16-byte grid, and f32
+    past the CUDA-core routine's limits: refused before any launch, never
+    sent to the other route."""
+    cpu = torch.device("cpu")
+    bad = [_ssd_launch(512, torch.bfloat16, HD=32),
+           _ssd_launch(512, torch.bfloat16, DS=96),
+           _ssd_launch(512, torch.float32, DS=256)]
+    desc, args = _ssd_launch(512, torch.bfloat16)
+    x = args[0]
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype)[1:].view(x.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    bad.append((desc, (shifted, *args[1:])))
+    for desc, args in bad:
+        assert SSD.route(desc, args) is None
+        with pytest.raises(ValueError, match="no ssd route"):
+            SSD.check(desc, args, new_outputs(desc, cpu))
+
+
+def _split(v, lo=True):
+    """An f32 operand as bf16 hi + lo (the tensor-core route's split), or
+    rounded once to bf16 (``lo=False``), back in f32."""
+    hi = v.to(torch.bfloat16).float()
+    return hi + ((v - hi).to(torch.bfloat16).float() if lo else 0.0)
+
+
+def emulate_tc_route(x, dt, A, Bm, Cm, D, piece=256, split=("G", "x'", "h")):
+    """The arithmetic of the SSD's bf16 tensor-core route
+    (``csrc/mamba2_scan.cu``, namespace tc) in f32 on the CPU: the tokens
+    in pieces of ``piece`` whatever the chunk length; x, B and C enter the
+    products as they are (bf16, exact); G, x' and h as bf16 hi + lo (each
+    operand named in ``split``; any other is rounded once to bf16); y
+    rounded once to bf16 at the end."""
+    B, S, NH, HD = x.shape
+    xf, bf, cf = x.float(), Bm.float(), Cm.float()
+    h = torch.zeros(B, NH, HD, Bm.shape[-1])
+    y = torch.empty(B, S, NH, HD)
+    for s0 in range(0, S, piece):
+        sl = slice(s0, min(S, s0 + piece))
+        xk, dtk, bk, ck = xf[:, sl], dt[:, sl], bf[:, sl], cf[:, sl]
+        n = xk.shape[1]
+        cum = torch.cumsum(dtk * A, dim=1)                  # (B, n, NH)
+        tot = cum[:, -1]
+        tri = torch.ones(n, n, dtype=torch.bool).tril()
+        delta = torch.where(tri[None, ..., None],
+                            cum[:, :, None] - cum[:, None], -torch.inf)
+        g = (torch.einsum("btn,bsn->bts", ck, bk)[..., None]
+             * torch.exp(delta) * dtk[:, None])             # (B, t, s, NH)
+        yk = torch.einsum("btsh,bshd->bthd", _split(g, "G" in split), xk)
+        yk = yk + torch.exp(cum)[..., None] * torch.einsum(
+            "btn,bhdn->bthd", ck, _split(h, "h" in split))
+        y[:, sl] = yk + xk * D[None, None, :, None]
+        xp = (torch.exp(tot[:, None] - cum) * dtk)[..., None] * xk
+        h = (torch.exp(tot)[..., None, None] * h
+             + torch.einsum("bshd,bsn->bhdn", _split(xp, "x'" in split), bk))
+    return y.to(torch.bfloat16), h
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+def _ssd_model_case(width, S, B=1):
+    """An SSD launch of chip_smoke.py's kind (B and C scaled so that C.B is
+    of order one) at mamba2-130m's full or reduced width."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    cfg = cfg if width == "full" else cfg.reduced()
+    s = cfg.ssm
+    return _chip_smoke().ssd_case(
+        np.random.default_rng(S), torch.device("cpu"), B, S,
+        s.num_heads(cfg.d_model), s.head_dim, s.d_state, s.chunk_size,
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("width,S,B", [("full", 512, 1), ("full", 300, 1),
+                                       ("full", 257, 1), ("reduced", 64, 2),
+                                       ("reduced", 37, 2)])
+def test_tc_route_roundings_stay_inside_the_gates(width, S, B):
+    """With G, x' and h split hi + lo, the route's arithmetic agrees with
+    the f32 plain version at chip_smoke.py's own gates: y within 2 bf16
+    ulps, h within 1e-4 max|h|; at full width B = 1 (the HP prefill) and
+    at reduced width, for chunk lengths the pieces cut across."""
+    cs = _chip_smoke()
+    desc, args = _ssd_model_case(width, S, B)
+    want = new_outputs(desc, torch.device("cpu"), zero=True)
+    SSD.plain_version(desc, args, want)
+    y, h = emulate_tc_route(*args)
+    cs.compare("y", y, want[0], "ssd")
+    cs.compare("h", h, want[1], "ssd")
+
+
+@pytest.mark.parametrize("once", ["G", "x'", "h"])
+def test_tc_route_needs_every_split(once):
+    """Rounding any one of G, x' and h to bf16 once, instead of splitting
+    it, breaks a gate at full width: why the route splits all three."""
+    cs = _chip_smoke()
+    desc, args = _ssd_model_case("full", 512)
+    want = new_outputs(desc, torch.device("cpu"), zero=True)
+    SSD.plain_version(desc, args, want)
+    y, h = emulate_tc_route(*args, split={"G", "x'", "h"} - {once})
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs.compare("y", y, want[0], "ssd")
+        cs.compare("h", h, want[1], "ssd")
