@@ -17,9 +17,10 @@ Phases, each raising on failure:
      (bf16);
   3. times at those shapes (the L = 150 and L = 1 prefills in the plain
      form only): kernel (on outputs made before the timed window), plain
-     version, one library call as yardstick where one PyTorch call
-     computes the same function (timed here only, never used by the port)
-     and the bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
+     version (the plain form's kernel output held against it once more),
+     one library call as yardstick where one PyTorch call computes the
+     same function (timed here only, never used by the port) and the
+     bound max(flops / 989 TFLOP/s, bytes / 3.35 TB/s);
   4. the main path: a TallyServer on the card, a best-effort "training"
      client with the full-width matmul, flash attention and SSD scan, and a
      high-priority "inference" client sending prefill requests of one
@@ -27,15 +28,27 @@ Phases, each raising on failure:
   5. the model path: mamba2-130m at full width on its use_pallas path,
      served by the ported ServingEngine (6 requests, 8 new tokens each);
      every prefill of every layer runs the SSD kernel, and each prompt's
-     prefill is held against the torch-ops path.
-Phases 4 and 5 each zero the launch counts before and read them after;
-every entry point of the path must have run, and no bf16 launch may have
-taken a CUDA-core (f32) route. The line before the last
+     prefill is held against the torch-ops path;
+  6. the dense model path: qwen2.5-14b at full width (48 layers, 14.8 B
+     f32 parameters) on its use_pallas path behind the ServingEngine, the
+     same 6 requests; every prefill of every layer runs flash attention
+     and every prefill and decode step the three SwiGLU matmuls; each
+     prompt's prefill is held against the torch-ops path (f32 and bf16)
+     and, layer by layer in bf16, against the kernels' plain versions;
+     the kernels are held against their plain versions and timed at every
+     serving shape (each prompt length and a decode step);
+     then the serving driver ``repro_torch.launch.serve`` once, at the
+     reduced width it runs.
+Phases 4, 5 and 6 each zero the launch counts before their path and read
+them after; every entry point of the path must have run, and no bf16
+launch may have taken a CUDA-core (f32) route. The line before the last
 is the kernels' JSON summary, the last line ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -58,6 +71,19 @@ PROMPTS, NEW_TOKENS = (512, 300, 257, 100, 64, 512), 8
 # phase 5 gates, relative L2 error of the kernel path against torch ops:
 # f32 logits and states (sum order through 24 layers), bf16 layer-0 state
 MODEL_TOL_F32, STATE0_TOL = 1e-3, 1e-4
+# phase 6 gate (b), relative L2 error of bf16 layer 1's k cache, the first
+# cache entry made from the kernels' outputs: the CPU rehearsal
+# (``rehearse_gates``) gives 1.9e-2 to 2.8e-2 over the six prompts (the
+# random init's attention is near one-hot, and the two paths round q's
+# scaling and P apart), so 5e-2
+KV1_TOL = 5e-2
+# phase 6 gate (c), relative L2 error of each of the first PLAIN_LAYERS
+# layers in bf16 (attention, MLP and layer output), the kernels against
+# their plain versions from the same input: the CPU rehearsal with the
+# kernels' roundings emulated (``rehearse_gates``) gives 6.3e-4 to 7.2e-4
+# for the attention and the layer, 3.0e-3 to 3.25e-3 for the MLP (its bf16
+# input rounds apart where the attention differs), so 1e-2
+PLAIN_LAYERS, PLAIN_TOL = 2, 1e-2
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -441,32 +467,52 @@ def library_fn(label, desc, args, heads: int):
 def time_cases(cases, reps: int, heads: int, plain_only=()):
     """Each form of each case (the plain form alone for the labels in
     ``plain_only``) timed on outputs made before the timed window (a fresh
-    zeroed f32 output of mm_be alone is 226 MB to write). The matmul kernel
-    writes f32, as the reference's does; ``torch.matmul``, the yardstick,
-    writes bf16."""
+    zeroed f32 output of mm_be alone is 226 MB to write), and the plain
+    form's kernel output held against the plain version's (run once, for
+    its time): the row gets its ``max_abs_err``. On the CPU nothing is
+    timed (the times are None) and the comparison alone runs. The matmul
+    kernel writes f32, as the reference's does; ``torch.matmul``, the
+    yardstick, writes bf16."""
     from repro_torch.core.descriptor import new_outputs
+
+    def clock(fn, n, **kw):
+        if on_card:
+            return cuda_ms(fn, n, **kw)
+        fn()
+        return None
+
+    def ms_s(ms, fmt):
+        return "not timed" if ms is None else f"{ms:{fmt}} ms"
+
     rows = {}
     for label, (desc, args) in cases.items():
+        on_card = args[0].is_cuda
         b_ms, b_by = bound(desc)
         lib = library_fn(label, desc, args, heads)
-        lib_ms = None if lib is None else cuda_ms(lib, reps)
-        outs = new_outputs(desc, args[0].device, zero=True)
+        lib_ms = None if lib is None or not on_card else cuda_ms(lib, reps)
+        ref = new_outputs(desc, args[0].device, zero=True)
         # the plain version's eager tile walk is host-bound: its time is
         # the host's
-        plain_ms = cuda_ms(lambda: run_form(desc, args, "plain", False, outs),
-                           1, warmup=0, hide_host=False)
+        plain_ms = clock(lambda: run_form(desc, args, "plain", False, ref),
+                         1, warmup=0, hide_host=False)
+        outs = new_outputs(desc, args[0].device, zero=True)
         forms = (("plain",) if label in plain_only
                  else ("plain", "sliced", "persistent"))
         for form in forms:
-            ms = cuda_ms(lambda: run_form(desc, args, form, True, outs), reps)
+            ms = clock(lambda: run_form(desc, args, form, True, outs), reps)
             rows[(label, form)] = dict(ms=ms, plain_ms=plain_ms,
                                        bound_ms=b_ms, bound_by=b_by,
                                        library_ms=lib_ms)
-            lib_s = "none" if lib_ms is None else f"{lib_ms:.3f} ms"
-            print(f"  {label} {form}: kernel {ms:.3f} ms, plain version "
-                  f"{plain_ms:.1f} ms, library {lib_s}, bound "
-                  f"{b_ms:.4f} ms ({b_by}), {b_ms / ms:.1%} of bound",
-                  flush=True)
+            if form == "plain":
+                rows[(label, form)]["max_abs_err"] = max(
+                    compare(f"{label} plain", k, p, desc.kernel.name,
+                            p_rounding_slack(desc, args))
+                    for k, p in zip(outs, ref))
+            share = "" if ms is None else f", {b_ms / ms:.1%} of bound"
+            print(f"  {label} {form}: kernel {ms_s(ms, '.3f')}, plain "
+                  f"version {ms_s(plain_ms, '.1f')}, library "
+                  f"{'none' if lib is None else ms_s(lib_ms, '.3f')}, bound "
+                  f"{b_ms:.4f} ms ({b_by}){share}", flush=True)
     return rows
 
 
@@ -684,6 +730,30 @@ def serve(model, params, prompts, scfg, new_tokens):
     return reqs, decode_s, time.monotonic() - t0
 
 
+def check_served(cfg, dev, reqs, prompts, new_tokens, decode_s, wall):
+    """Every request answered with ``new_tokens`` in-vocab tokens; prints
+    TTFT, request latency, decode tokens/s and the peak device memory."""
+    for r, n in zip(reqs, prompts):
+        if not r.done or r.shed or len(r.tokens) != new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"request {r.rid} ({n} tokens): "
+                                 f"{len(r.tokens)} tokens, done={r.done}")
+    ttft = [r.ttft for r in reqs]
+    lat = [r.latency for r in reqs]
+    dec_tokens = sum(len(r.tokens) - 1 for r in reqs)
+    print(f"  {len(reqs)} requests of {list(prompts)} tokens, "
+          f"{new_tokens} new tokens each, in {wall * 1e3:.1f} ms", flush=True)
+    print(f"  TTFT by request {[round(t * 1e3, 1) for t in ttft]} ms")
+    print(f"  TTFT p50 {pct(ttft, 50):.1f} ms, p99 {pct(ttft, 99):.1f} ms; "
+          f"request latency p50 {pct(lat, 50):.1f} ms, p99 "
+          f"{pct(lat, 99):.1f} ms; decode {dec_tokens} tokens in "
+          f"{len(decode_s)} steps, {dec_tokens / sum(decode_s):.1f} tokens/s "
+          f"({sum(decode_s) / len(decode_s) * 1e3:.2f} ms a step)")
+    if dev.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+
 def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
                 capacity=4, max_len=1024):
     """mamba2 on its use_pallas path behind the ported ServingEngine, with
@@ -719,24 +789,7 @@ def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
               for k, v in fam.launches.items()}
 
     # -- checks ---------------------------------------------------------------
-    for r, n in zip(reqs, prompts):
-        if not r.done or r.shed or len(r.tokens) != new_tokens or not all(
-                0 <= t < cfg.vocab_size for t in r.tokens):
-            raise AssertionError(f"request {r.rid} ({n} tokens): "
-                                 f"{len(r.tokens)} tokens, done={r.done}")
-    ttft = [r.ttft for r in reqs]
-    lat = [r.latency for r in reqs]
-    dec_tokens = sum(len(r.tokens) - 1 for r in reqs)
-    print(f"  {len(reqs)} requests of {list(prompts)} tokens, "
-          f"{new_tokens} new tokens each, in {wall * 1e3:.1f} ms", flush=True)
-    print(f"  TTFT p50 {pct(ttft, 50):.1f} ms, p99 {pct(ttft, 99):.1f} ms; "
-          f"request latency p50 {pct(lat, 50):.1f} ms, p99 "
-          f"{pct(lat, 99):.1f} ms; decode {dec_tokens} tokens in "
-          f"{len(decode_s)} steps, {dec_tokens / sum(decode_s):.1f} tokens/s "
-          f"({sum(decode_s) / len(decode_s) * 1e3:.2f} ms a step)")
-    if dev.type == "cuda":
-        print(f"  peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    check_served(cfg, dev, reqs, prompts, new_tokens, decode_s, wall)
 
     # each prompt's prefill, the kernel path against the torch-ops path
     # (ssd_chunked), on the same weights. Gated: (a) with f32 activations,
@@ -790,17 +843,21 @@ def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
     return counts
 
 
-def where_the_time_goes(model, params, cfg, dev, prompt, capacity):
-    """One lone prefill and one decode step of ``capacity`` slots."""
+def where_the_time_goes(model, params, cfg, dev, prompt, capacity,
+                        max_len=1):
+    """One lone prefill and one decode step of ``capacity`` slots, each
+    slot holding the prompt (a k/v cache of ``max_len`` positions)."""
     from repro_torch.configs import kv_cache_specs
     x = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
     cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (
-        shape, dtype) in kv_cache_specs(cfg, capacity, 1).items()}
+        shape, dtype) in kv_cache_specs(cfg, capacity, max_len).items()}
     tok = torch.zeros(capacity, 1, dtype=torch.long, device=dev)
+    lengths = torch.full((capacity,), min(len(prompt), max_len - 1),
+                         dtype=torch.int32, device=dev)
     profile_once(f"prefill {len(prompt)} tokens",
                  lambda: model.prefill(params, x), dev)
     profile_once(f"decode step, {capacity} slots",
-                 lambda: model.decode_step(params, tok, cache), dev)
+                 lambda: model.decode_step(params, tok, cache, lengths), dev)
 
 
 def profile_once(label, fn, dev) -> None:
@@ -839,6 +896,308 @@ def profile_once(label, fn, dev) -> None:
           f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
     for ms, count, key in rows[:6]:
         print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# The dense model path: qwen2.5-14b behind the ported ServingEngine
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def kernels_as(**impl):
+    """Within the block, the families named in ``impl`` (``matmul``,
+    ``flash``, ``ssd``) run ``impl[name](desc, args, outs)`` where a model
+    launches their plain form; the rest run as they are. It stands in for
+    the plain form only, the one that the model's ``ops`` call."""
+    from repro_torch import kernels
+    fams = {f.name: f for f in kernels.FAMILIES}
+    for name, fn in impl.items():
+        fams[name].plain = fn
+    try:
+        yield
+    finally:
+        for name in impl:
+            del fams[name].plain
+
+
+def plain_versions():
+    """The model's kernel calls run the kernels' plain versions, on any
+    device: the reference side of gate (c)."""
+    from repro_torch import kernels
+    return kernels_as(**{f.name: f.plain_version for f in kernels.FAMILIES})
+
+
+def emulated_tensor_cores():
+    """The bf16 kernels' roundings emulated in PyTorch, to rehearse gate
+    (c) on the CPU (where the kernel path runs the plain versions): the
+    matmul's f32 sums in another order (summed in f64, then rounded to
+    f32), flash attention's P rounded to bf16 before P·V with l summed from
+    the unrounded P (``p_rounding_slack``), in one pass over the keys."""
+
+    def matmul(desc, args, outs):
+        a, b = args
+        outs[0].copy_((a.double() @ b.double()).float())
+
+    def flash(desc, args, outs):
+        q, k, v = args
+        st = desc.static
+        kf = k.float().repeat_interleave(st["group"], dim=0)
+        vf = v.float().repeat_interleave(st["group"], dim=0)
+        sc = (q.float() / math.sqrt(st["D"])) @ kf.transpose(1, 2)
+        if st["causal"]:
+            pos = torch.arange(max(q.shape[1], st["T"]), device=q.device)
+            qpos = st["q_offset"] + pos[:q.shape[1], None]
+            sc = sc.masked_fill(qpos < pos[None, :st["T"]], -math.inf)
+        p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+        o = (p.bfloat16().float() @ vf) / p.sum(-1, keepdim=True).clamp_min(
+            1e-30)
+        outs[0].copy_(o.to(outs[0].dtype))
+
+    return kernels_as(matmul=matmul, flash=flash)
+
+
+def layerwise(kern, ref, params, x, layers, kern_ctx=contextlib.nullcontext,
+              ref_ctx=contextlib.nullcontext):
+    """Gates (a) and (c) for one prompt: each of the first ``layers``
+    layers of the model ``kern`` (run inside ``kern_ctx()``) against the
+    same layer of ``ref`` (inside ``ref_ctx()``) from the same input,
+    ``ref``'s own output of the layer before: the attention block's output
+    (flash attention), the SwiGLU MLP's output (three matmuls) and the
+    layer's output. Returns the largest relative error of each over the
+    layers. Layer by layer, because random layers amplify a difference:
+    carried through the whole stack, the sums' order alone grows some 15
+    to 40 times a layer (``rehearse_gates``)."""
+    from repro_torch.models.transformer import _layer
+    h = ref.embed_tokens(params, x)
+    worst = [0.0, 0.0, 0.0]
+    for i in range(layers):
+        lp = _layer(params["layers"]["p0"], i)
+        with kern_ctx():
+            got = kern._sublayer(0, lp, h)
+        with ref_ctx():
+            want = ref._sublayer(0, lp, h)
+        worst = [max(w, rel_err(g, o)) for w, g, o in zip(
+            worst, (got[1], got[2], got[0]), (want[1], want[2], want[0]))]
+        h = want[0]
+    return worst
+
+
+def dense_gates(cfg, dev, params, prompts, toks, f32_prompts,
+                plain_layers=PLAIN_LAYERS):
+    """Each prompt's prefill on the kernel path against the torch-ops path
+    (chunked attention, torch matmuls) on the same weights. Gated: (a) for
+    the prompts in ``f32_prompts``, with f32 activations, each layer's
+    attention, MLP and output from the same input (``layerwise``), whose
+    difference is the sums' order; (b) in bf16, as served, through the
+    whole prefill, layer 1's k, the first cache entry made from the
+    kernels' outputs (layer 0's k and v come before any kernel: printed,
+    they must be equal); (c) in bf16, as served, the first
+    ``plain_layers`` layers from the same input through the kernels and
+    through their plain versions (``layerwise``), whose difference is the
+    kernels' own rounding. Printed only: bf16 logits and deeper caches,
+    which random layers amplify."""
+    import dataclasses
+    from repro_torch.models.transformer import build_model
+    models = {pal: build_model(dataclasses.replace(cfg, use_pallas=pal))
+              for pal in (True, False)}
+    f32 = [build_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                           use_pallas=pal))
+           for pal in (True, False)]
+    L = cfg.num_layers
+    for n, t in zip(prompts, toks):
+        x = torch.as_tensor(t[None], dtype=torch.long, device=dev)
+        t0 = time.monotonic()
+        lk, ck = models[True].prefill(params, x)
+        lp, cp = models[False].prefill(params, x)
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"prefill of {n} tokens: non-finite")
+        kv1 = rel_err(ck["k"][1], cp["k"][1])
+        kv0 = all(torch.equal(ck[key][0], cp[key][0]) for key in ("k", "v"))
+        kv_max = max(rel_err(ck[key][i], cp[key][i])
+                     for key in ("k", "v") for i in range(L))
+        del ck, cp
+        e16 = layerwise(models[True], models[True], params, x, plain_layers,
+                        ref_ctx=plain_versions)
+        ok = kv1 <= KV1_TOL and max(e16) <= PLAIN_TOL
+        line = f"  prefill {n} tokens: "
+        if n in f32_prompts:
+            e32 = layerwise(*f32, params, x, L)
+            ok = ok and max(e32) <= MODEL_TOL_F32
+            line += (f"f32 layer by layer: attention {e32[0]:.2e}, MLP "
+                     f"{e32[1]:.2e}, output {e32[2]:.2e} "
+                     f"[<= {MODEL_TOL_F32:g}]; ")
+        else:
+            line += "f32 not gated; "
+        print(line + f"bf16 layer-1 k {kv1:.2e} [<= {KV1_TOL:g}]; bf16 "
+              f"kernels vs plain versions, {plain_layers} layers: attention "
+              f"{e16[0]:.2e}, MLP {e16[1]:.2e}, output {e16[2]:.2e} "
+              f"[<= {PLAIN_TOL:g}] {'ok' if ok else 'FAIL'}; bf16 layer-0 "
+              f"k/v equal: {kv0}; bf16 logits {rel_err(lk, lp):.2e}, k/v max "
+              f"{kv_max:.2e} (not gated); {time.monotonic() - t0:.1f} s",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"prefill of {n} tokens: the kernel path "
+                                 "disagrees with the torch-ops path or the "
+                                 "plain versions")
+    return models[False]
+
+
+def weight_cast_ms(params, cfg) -> float:
+    """Device time of the casts that one forward pass makes of the f32
+    weights to the activation type: every attention and MLP weight of every
+    layer and the lm_head (the reference casts at each call)."""
+    from repro_torch.models.transformer import _layer
+    stack = params["layers"]["p0"]
+    leaves = [w for i in range(cfg.num_layers)
+              for sub in ("attn", "ffn")
+              for w in _layer(stack[sub], i).values()] + [params["lm_head"]]
+    n = sum(w.numel() for w in leaves)
+
+    def cast():
+        for w in leaves:
+            w.to(cfg.dtype)
+
+    ms = cuda_ms(cast, 3)
+    gb = n * (4 + 2) / 1e9
+    print(f"  per-forward weight casts f32 -> {cfg.dtype}: {n / 1e9:.2f} G "
+          f"parameters, {gb:.1f} GB moved, {ms:.2f} ms (bound "
+          f"{gb * 1e9 / PEAK_BYTES * 1e3:.2f} ms)", flush=True)
+    return ms
+
+
+def serving_cases(cfg, dev, prompts=PROMPTS, decode_rows=4):
+    """The dense serving path's kernel launches at full width (bf16), at
+    each prompt length that phase 6 serves: the MLP's up-projection (E x F,
+    as x @ wg and x @ wi) and down-projection (F x E) at M = the prompt
+    length and at a decode step of ``decode_rows`` slots, and the prefill's
+    flash attention (block geometry of the reference's ``_pick_block``:
+    bm = bq = 1 at a prime length)."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    from repro_torch.kernels.matmul import matmul_desc
+    rng = np.random.default_rng(SEED + 5)
+    bf = torch.bfloat16
+    E, F = cfg.d_model, cfg.d_ff
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    seqs = sorted(set(prompts), reverse=True)
+    weights = {"up": tensor(rng, (E, F), bf, dev, 1 / math.sqrt(E)),
+               "down": tensor(rng, (F, E), bf, dev, 1 / math.sqrt(F))}
+    cases = {}
+    for M in (*seqs, decode_rows):
+        for proj, w in weights.items():
+            K, N = w.shape
+            cases[f"mm_serve_{proj}_m{M}"] = (
+                matmul_desc(M, K, N, bf), (tensor(rng, (M, K), bf, dev), w))
+    for S in seqs:
+        cases[f"flash_serve_s{S}"] = (
+            flash_attention_desc(H, S, S, D, H // KVH, bf, causal=True),
+            (tensor(rng, (H, S, D), bf, dev), tensor(rng, (KVH, S, D), bf,
+                                                     dev),
+             tensor(rng, (KVH, S, D), bf, dev)))
+    return cases
+
+
+def dense_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
+                capacity=4, max_len=1024, f32_prompts=PROMPTS):
+    """qwen2.5-14b on its use_pallas path behind the ported ServingEngine,
+    with weights drawn from a seeded generator on the device. Every prefill
+    of every layer runs flash attention; every prefill and decode step of
+    every layer runs the three SwiGLU matmuls. Returns the launch counts of
+    the served run and the serving-shape kernel rows."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import ServingConfig
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    model = build_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev)
+    n_params = param_count_tree(params)
+    rng = np.random.default_rng(SEED + 4)
+    toks = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in prompts]
+    scfg = ServingConfig(capacity=capacity, max_len=max_len)
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}, "
+          f"{n_params * 4 / 2 ** 30:.1f} GiB, drawn in "
+          f"{time.monotonic() - t0:.1f} s), activations {cfg.dtype}; "
+          f"ServingEngine(capacity={capacity}, max_len={max_len})",
+          flush=True)
+    serve(model, params, toks[-2:-1], scfg, 2)      # warm-up, not counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    reqs, decode_s, wall = serve(model, params, toks, scfg, new_tokens)
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+
+    # -- checks ---------------------------------------------------------------
+    check_served(cfg, dev, reqs, prompts, new_tokens, decode_s, wall)
+    ops_model = dense_gates(cfg, dev, params, prompts, toks, f32_prompts)
+    ops_reqs, _, _ = serve(ops_model, params, toks, scfg, new_tokens)
+    same = sum(a == b for r, o in zip(reqs, ops_reqs)
+               for a, b in zip(r.tokens, o.tokens))
+    print(f"  greedy tokens equal to the torch-ops path's: {same}/"
+          f"{len(reqs) * new_tokens} (printed, not gated)")
+    where_the_time_goes(model, params, cfg, dev, toks[0], capacity, max_len)
+    if dev.type == "cuda":
+        weight_cast_ms(params, cfg)
+    print("  the kernels at the serving shapes (plain form, as served):",
+          flush=True)
+    cases = serving_cases(cfg, dev, prompts, capacity)
+    rows = time_cases(cases, REPS, cfg.num_heads, plain_only=tuple(cases))
+
+    print(f"  launches on the dense model path: {json.dumps(counts)}")
+    cuda_core_guard(counts, "dense model path")
+    L = cfg.num_layers
+    need = {"flash_plain": L * len(prompts),
+            "matmul_plain": 3 * L * (len(prompts) + len(decode_s))}
+    short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
+    if short:
+        raise AssertionError(f"entry points launched fewer times than the "
+                             f"dense path needs (launched, needed): {short}")
+    return counts, rows
+
+
+def rehearse_gates(layers=2, vocab=1024, prompts=PROMPTS,
+                   dtype=torch.bfloat16):
+    """CPU rehearsal of phase 6's bf16 prefill gates at full width:
+    qwen2.5-14b cut to ``layers`` layers and a ``vocab``-token vocabulary,
+    activations in ``dtype``. Gate (b): the kernel path (the plain versions
+    on the CPU) against the torch-ops path, each layer's k error and the
+    logits'. Gate (c): the kernels' roundings emulated
+    (``emulated_tensor_cores``) against the plain versions, layer by layer.
+    Prints one line per prompt.
+
+        python3 -c 'import chip_smoke as c; c.rehearse_gates()'
+    """
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    dev = torch.device("cpu")
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=layers,
+                              vocab_size=vocab, dtype=dtype)
+    kern = build_model(dataclasses.replace(cfg, use_pallas=True))
+    ops = build_model(cfg)
+    params = kern.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    for n in prompts:
+        x = torch.as_tensor(rng.integers(0, vocab, size=(1, n)))
+        lk, ck = kern.prefill(params, x)
+        lp, cp = ops.prefill(params, x)
+        errs = [f"{rel_err(ck['k'][i], cp['k'][i]):.3e}"
+                for i in range(layers)]
+        e16 = layerwise(kern, kern, params, x, layers,
+                        kern_ctx=emulated_tensor_cores)
+        print(f"prefill {n} tokens ({dtype}): (b) k rel err by layer {errs}, "
+              f"logits {rel_err(lk, lp):.3e}; layer 0 k/v equal: "
+              f"{torch.equal(ck['k'][0], cp['k'][0])}; (c) emulated kernels "
+              f"vs plain versions: attention {e16[0]:.3e}, MLP "
+              f"{e16[1]:.3e}, output {e16[2]:.3e}", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -904,23 +1263,46 @@ def main() -> int:
     m_counts = model_phase(mcfg, dev)
 
     fams = {f.name: f for f in kernels.FAMILIES}
-    summary = []
+    lines = []
     for fname, label in (("matmul", "mm_be"), ("flash", "flash_be"),
                          ("ssd", "ssd_be")):
         fam = fams[fname]
         desc, args = cases[label]
-        route = fam.route(desc, args)
+        lines.append((fam, label, desc.name, fam.route(desc, args)))
+    # phase 6 holds 55 GiB of parameters: free what phases 2-5 left
+    del cases, refs, desc, args
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[6] dense model path: qwen2.5-14b behind the ServingEngine",
+          flush=True)
+    d_counts, d_rows = dense_phase(cfg, dev)
+    print("  serving shapes: " + json.dumps(
+        {label: r for (label, _), r in d_rows.items()}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch.serve import serve as serve_driver
+    out = serve_driver("qwen2.5-14b", requests=16)
+    print(f"  repro_torch.launch.serve.serve('qwen2.5-14b', requests=16) "
+          f"(reduced width): {json.dumps(out)}", flush=True)
+    if out["requests"] != 16 or out["shed"] or out["device"] != "cuda:0":
+        raise AssertionError("the serving driver did not answer every "
+                             "request on the card")
+
+    summary = []
+    for fam, label, shape, route in lines:
         for form in ("plain", "sliced", "persistent"):
             r = rows[(label, form)]
             name = fam.symbol(route, form)
+            by_path = {"server": counts[name],
+                       "mamba2_serving": m_counts[name],
+                       "qwen_serving": d_counts[name]}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,
-                "shape": desc.name,
-                "launches": counts[name] + m_counts[name],
-                "launches_by_path": {"server": counts[name],
-                                     "mamba2_serving": m_counts[name]},
-                "max_abs_err": errs[label][form], **r})
+                "shape": shape, "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                **r, "max_abs_err": errs[label][form]})
     print(card)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""Architecture registry — importing this package registers the configs
-the port runs so far (mamba2-130m, qwen2.5-14b)."""
+"""Architecture registry — importing this package registers all configs
+(the reference's ten; the model builds the dense, vlm and ssm ones)."""
 from repro_torch.configs.base import (REGISTRY, HybridConfig, ModelConfig,
                                       MoEConfig, SSMConfig, all_arch_names,
                                       get_config, kv_cache_specs)
 
-from repro_torch.configs import mamba2_130m, qwen25_14b  # noqa: F401
+from repro_torch.configs import (arctic_480b, codeqwen15_7b,  # noqa: F401
+                                 deepseek_coder_33b, jamba_15_large_398b,
+                                 mamba2_130m, mistral_nemo_12b, qwen2_vl_7b,
+                                 qwen25_14b, qwen3_moe_30b_a3b, whisper_base)
 
 __all__ = [
     "REGISTRY", "HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",

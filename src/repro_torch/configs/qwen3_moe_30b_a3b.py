@@ -1,0 +1,20 @@
+"""qwen3-moe-30b-a3b — 128 experts top-8 [hf:Qwen/Qwen3-30B-A3B]."""
+from repro_torch.configs.base import ModelConfig, MoEConfig, register
+
+
+@register("qwen3-moe-30b-a3b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen3-moe-30b-a3b",
+        family="moe",
+        num_layers=48,
+        d_model=2048,
+        num_heads=32,
+        num_kv_heads=4,
+        d_ff=768,
+        vocab_size=151936,
+        head_dim=128,
+        rope_theta=1_000_000.0,
+        moe=MoEConfig(num_experts=128, experts_per_token=8, d_ff=768, every=1),
+        source="hf:Qwen/Qwen3-30B-A3B",
+    )

@@ -1,0 +1,142 @@
+"""Serving driver: batched inference on a reduced model (the port of
+``repro.launch.serve``).
+
+The paper's end-to-end scenario on real (reduced) models: a high-priority
+serving engine handles MAF2-style traffic; the reference also co-locates a
+best-effort training job through the engine's opportunistic hook, which
+waits for the port's training stack.
+
+    python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 24
+
+Request-level resilience: ``--chaos`` injects a mid-run outage (the engine
+blocks, queued requests blow their per-request timeout); ``--failover``
+arms the client-side failover stack — timeout retries with deterministic
+backoff, hedged requests, brownout degradation — so the outage degrades
+latency instead of losing requests. Runs on the card unless ``--device
+cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import all_arch_names, get_config
+from repro_torch.core.metrics import LatencyStats
+from repro_torch.core.traffic import maf2_like_trace
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import build_model
+from repro_torch.serving import (BrownoutPolicy, HedgePolicy, RetryPolicy,
+                                 ServingConfig, ServingEngine)
+
+
+def serve(arch: str, *, requests: int = 16, capacity: int = 4,
+          max_len: int = 96, max_new_tokens: int = 8,
+          colocate_train: bool = False, seed: int = 0,
+          mean_rate: float = 50.0, obs=None,
+          timeout: Optional[float] = None, chaos: bool = False,
+          failover: bool = False, stall_s: float = 8.0,
+          device: Union[str, torch.device, None] = None) -> dict:
+    if colocate_train:
+        raise NotImplementedError(
+            "colocate_train needs the port's training stack (launch/steps.py "
+            "and optim/): ROADMAP Queue 1 item 3")
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(seed, device=resolve_device(device))
+
+    if chaos and timeout is None:
+        # chaos without deadlines is invisible; the default budget sits
+        # above the baseline p99 (queueing-dominated) but below the
+        # injected outage, so only outage victims time out
+        timeout = 6.0
+    retry = hedge = brownout = None
+    if failover and timeout is not None:
+        # thresholds scale off the request budget: retries re-arm fast,
+        # hedges fire at half a budget of queue wait, brownout only under
+        # pressure far beyond one budget (it sheds terminally)
+        retry = RetryPolicy(max_retries=3, backoff_base=0.1,
+                            backoff_factor=2.0, jitter=0.25)
+        hedge = HedgePolicy(min_delay=timeout / 2)
+        brownout = BrownoutPolicy(queue_delay=3.0 * timeout,
+                                  min_capacity=max(1, capacity // 2),
+                                  exit_delay=1.5 * timeout)
+    engine = ServingEngine(model, params,
+                           ServingConfig(capacity, max_len,
+                                         request_timeout=timeout),
+                           obs=obs, retry=retry, hedge=hedge,
+                           brownout=brownout)
+    rng = np.random.default_rng(seed)
+    trace = maf2_like_trace(duration=requests / mean_rate * 2,
+                            mean_rate=mean_rate, seed=seed)
+    arrivals = trace.arrivals[:requests]
+    t0 = time.monotonic()
+    submitted = 0
+    stall_after = len(arrivals) // 2 if chaos else None
+    lat = LatencyStats()
+    while submitted < len(arrivals) or engine.queue or engine.n_active:
+        now = time.monotonic() - t0
+        while submitted < len(arrivals) and arrivals[submitted] <= now:
+            prompt = rng.integers(0, cfg.vocab_size,
+                                  size=int(rng.integers(4, 12)))
+            engine.submit(prompt.astype(np.int32),
+                          max_new_tokens=max_new_tokens)
+            submitted += 1
+        if stall_after is not None and submitted >= stall_after:
+            # injected outage: the engine goes dark mid-run; everything
+            # queued/in-flight blows its per-request timeout
+            stall_after = None
+            time.sleep(stall_s)
+        if not engine.step():
+            time.sleep(0.001)
+    for r in engine.done:
+        lat.record(r.latency)
+    return {
+        "arch": arch,
+        "requests": len(engine.done),
+        "shed": len(engine.shed_requests),
+        "retries": sum(r.attempt for r in engine.done
+                       + engine.shed_requests),
+        "p50_ms": lat.p50() * 1e3,
+        "p99_ms": lat.p99() * 1e3,
+        "be_quanta": 0,
+        "wall_s": time.monotonic() - t0,
+        "device": str(params["embed"].device),
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=all_arch_names(),
+                    default="qwen2.5-14b")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--capacity", type=int, default=4)
+    ap.add_argument("--max-new-tokens", type=int, default=8)
+    ap.add_argument("--colocate-train", action="store_true",
+                    help="not ported yet: needs the training stack")
+    ap.add_argument("--chaos", action="store_true",
+                    help="inject a mid-run engine outage (arms per-request "
+                         "timeouts)")
+    ap.add_argument("--failover", action="store_true",
+                    help="client-side failover stack: timeout retries, "
+                         "hedged requests, brownout degradation")
+    ap.add_argument("--timeout", type=float, default=None,
+                    help="per-request timeout in seconds")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+    out = serve(args.arch, requests=args.requests, capacity=args.capacity,
+                max_new_tokens=args.max_new_tokens,
+                colocate_train=args.colocate_train, chaos=args.chaos,
+                failover=args.failover, timeout=args.timeout,
+                device=args.device)
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

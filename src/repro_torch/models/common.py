@@ -65,8 +65,9 @@ def _init_one(p: P, gen: torch.Generator, param_dtype,
     else:
         fan_in = p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]
         std = p.scale / math.sqrt(max(fan_in, 1))
+    # scaled in place: at full width one leaf is tens of GB
     x = torch.empty(p.shape, device=device).normal_(generator=gen)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def init_from_specs(specs, gen: torch.Generator,

@@ -1,15 +1,21 @@
 """Decoder model (the port of ``repro.models.transformer``).
 
-The reference covers every architecture family with one ``lax.scan`` over
-stacked layer parameters. The port runs the ``ssm`` family (mamba2:
-mixer-only blocks) as a Python loop over the same stacked parameters, in
-the reference's layout (``layers/p0/...`` with a leading layer axis), so
-that a JAX parameter tree carried across through numpy runs unchanged.
-The other families need mixers the port does not have yet; building one
-raises.
+One implementation parameterized by ``ModelConfig``:
+  dense                  : homogeneous attention + SwiGLU stack
+  vlm (qwen2-vl)         : the dense stack with M-RoPE positions threaded
+                           through attention
+  ssm (mamba2)           : mixer-only blocks
+
+The reference runs the layer stack as one ``lax.scan`` over periods of
+stacked parameters; the port runs it as a Python loop over the same stacked
+parameters, in the reference's layout (``layers/p{p}/attn/wq`` keeps its
+leading layer axis), so that a JAX parameter tree carried across through
+numpy runs unchanged. The moe, hybrid and audio families need the MoE block
+and the encoder, which the port does not have yet; building one raises.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Union
 
 import torch
@@ -18,7 +24,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.common import P, init_from_specs, stacked
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import attention_block, rms_norm, swiglu_mlp
+
+FAMILIES = ("dense", "vlm", "ssm")
+# what each family the port cannot build yet is waiting for
+MISSING = {"moe": "the MoE block (models/moe.py)",
+           "hybrid": "the MoE block (models/moe.py)",
+           "audio": "the encoder stack and cross-attention in the stack"}
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def layer_period(cfg: ModelConfig) -> int:
+    p = 1
+    if cfg.hybrid is not None:
+        p = _lcm(p, cfg.hybrid.attn_every)
+    if cfg.moe is not None:
+        p = _lcm(p, cfg.moe.every)
+    return p
 
 
 def _layer(tree, i: int):
@@ -28,32 +53,80 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def _attn_specs(cfg: ModelConfig) -> Dict[str, P]:
+    E, H, D, KVH = cfg.d_model, cfg.num_heads, cfg.head_dim_, cfg.num_kv_heads
+    s = {
+        "wq": P((E, H, D), ("embed", "heads", None)),
+        "wk": P((E, KVH, D), ("embed", "kv_heads", None)),
+        "wv": P((E, KVH, D), ("embed", "kv_heads", None)),
+        "wo": P((H, D, E), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = P((H, D), ("heads", None), init="zeros")
+        s["bk"] = P((KVH, D), ("kv_heads", None), init="zeros")
+        s["bv"] = P((KVH, D), ("kv_heads", None), init="zeros")
+    return s
+
+
+def _mlp_specs(cfg: ModelConfig) -> Dict[str, P]:
+    E, F = cfg.d_model, cfg.d_ff
+    return {
+        "wi": P((E, F), ("embed", "mlp")),
+        "wg": P((E, F), ("embed", "mlp")),
+        "wo": P((F, E), ("mlp", "embed")),
+    }
+
+
 class TransformerLM:
     """Model object: specs + forward functions (train / prefill / decode)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family != "ssm":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: the port runs the ssm family only; the "
-                f"{cfg.family} family needs attention, SwiGLU/MoE or encoder "
-                "layers (ROADMAP Queue 1 item 1, the dense family; item 4, "
-                "the other configs)")
+                f"{cfg.name}: the port runs the {', '.join(FAMILIES)} "
+                f"families; the {cfg.family} family needs "
+                f"{MISSING[cfg.family]} (ROADMAP Queue 1 item 4)")
         self.cfg = cfg
-        # the ssm family has one mixer kind and no FFN: a period of one
-        # layer, so the stack holds num_layers periods
-        self.n_periods = cfg.num_layers
+        self.period = layer_period(cfg)
+        assert cfg.num_layers % self.period == 0, (
+            f"{cfg.name}: num_layers={cfg.num_layers} not divisible by "
+            f"period={self.period}")
+        self.n_periods = cfg.num_layers // self.period
+        # static per-position structure
+        self.mixer_kind = [
+            "attn" if cfg.is_attention_layer(p) else "ssm"
+            for p in range(self.period)]
+        self.ffn_kind = [None if cfg.family == "ssm" else "dense"
+                         for _ in range(self.period)]
 
     # -- specs ---------------------------------------------------------------
+
+    def _sublayer_specs(self, p: int) -> Dict[str, Any]:
+        cfg = self.cfg
+        d: Dict[str, Any] = {"ln1": P((cfg.d_model,), (None,), init="ones")}
+        if self.mixer_kind[p] == "attn":
+            d["attn"] = _attn_specs(cfg)
+        else:
+            d["ssm"] = m2.mamba2_specs(cfg)
+        if self.ffn_kind[p] is not None:
+            d["ln2"] = P((cfg.d_model,), (None,), init="ones")
+            d["ffn"] = _mlp_specs(cfg)
+        return d
 
     def specs(self) -> Dict[str, Any]:
         cfg = self.cfg
         E, V = cfg.d_model, cfg.vocab_size
-        layer = {"ln1": P((E,), (None,), init="ones"),
-                 "ssm": m2.mamba2_specs(cfg)}
         s: Dict[str, Any] = {
             "embed": P((V, E), ("vocab", "embed"), init="fan_last"),
             "final_norm": P((E,), (None,), init="ones"),
-            "layers": {"p0": stacked(self.n_periods, layer)},
+            "layers": {
+                f"p{p}": stacked(self.n_periods, self._sublayer_specs(p))
+                for p in range(self.period)},
         }
         if not cfg.tie_embeddings:
             s["lm_head"] = P((E, V), ("embed", "vocab"))
@@ -69,29 +142,60 @@ class TransformerLM:
 
     # -- decoder stack ---------------------------------------------------------
 
-    def _stack(self, params, x, *, cache=None, collect_cache=False):
-        """Run the layer stack. Returns (x, aux_loss, new_cache | None);
-        with ``cache`` (the tree of ``kv_cache_specs``) it runs decode."""
+    def _sublayer(self, p: int, lp, x, *, positions=None, cache=None,
+                  cache_index=None, collect_cache=False):
+        """The layer at period position ``p`` on its parameters ``lp``;
+        ``cache`` is its own entry in decode, (k, v) or (conv_state,
+        ssm_state). Returns (output, mixer output, MLP output or None, the
+        layer's new cache entries or None)."""
         cfg = self.cfg
         decode = cache is not None
-        stack = params["layers"]["p0"]
-        conv, ssm = [], []
+        h = rms_norm(x, lp["ln1"], cfg.rms_eps)
+        new = None
+        if self.mixer_kind[p] == "attn":
+            h, ex = attention_block(lp["attn"], h, cfg, positions=positions,
+                                    cache=cache, cache_index=cache_index)
+            if decode or collect_cache:
+                new = dict(zip(("k", "v"), ex["cache"] if decode
+                               else ex["kv"]))
+        else:  # ssm mixer
+            h, st = m2.mamba2_block(lp["ssm"], h, cfg, state=cache,
+                                    want_state=collect_cache)
+            if st is not None and (decode or collect_cache):
+                new = dict(zip(("conv_state", "ssm_state"), st))
+        x = x + h
+        m = None
+        if self.ffn_kind[p] is not None:
+            m = swiglu_mlp(lp["ffn"], rms_norm(x, lp["ln2"], cfg.rms_eps),
+                           cfg)
+            x = x + m
+        return x, h, m, new
+
+    def _stack(self, params, x, *, positions=None, cache=None,
+               cache_index=None, collect_cache=False):
+        """Run the layer stack. Returns (x, aux_loss, new_cache | None);
+        with ``cache`` (the tree of ``kv_cache_specs``, leading dim n_attn /
+        n_ssm) it runs decode (S == 1)."""
+        decode = cache is not None
+        ys: Dict[str, list] = {}
+        n = {"attn": 0, "ssm": 0}      # attention / ssm layers so far
+        keys = {"attn": ("k", "v"), "ssm": ("conv_state", "ssm_state")}
         for i in range(self.n_periods):
-            lp = _layer(stack, i)
-            h = rms_norm(x, lp["ln1"], cfg.rms_eps)
-            st = ((cache["conv_state"][i], cache["ssm_state"][i])
-                  if decode else None)
-            h, new_st = m2.mamba2_block(lp["ssm"], h, cfg, state=st,
-                                        want_state=collect_cache)
-            if new_st is not None and (decode or collect_cache):
-                conv.append(new_st[0])
-                ssm.append(new_st[1])
-            x = x + h
+            for p in range(self.period):
+                kind = self.mixer_kind[p]
+                entry = (tuple(cache[k][n[kind]] for k in keys[kind])
+                         if decode else None)
+                x, _, _, new = self._sublayer(
+                    p, _layer(params["layers"][f"p{p}"], i), x,
+                    positions=positions, cache=entry,
+                    cache_index=cache_index, collect_cache=collect_cache)
+                for k, v in (new or {}).items():
+                    ys.setdefault(k, []).append(v)
+                n[kind] += 1
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         new_cache = None
         if decode or collect_cache:
-            new_cache = {"ssm_state": torch.stack(ssm),
-                         "conv_state": torch.stack(conv)}
+            new_cache = {k: torch.stack(v) for k, v in ys.items()}
             if decode:  # static entries pass through
                 for k in cache:
                     new_cache.setdefault(k, cache[k])
@@ -109,26 +213,29 @@ class TransformerLM:
                 else params["lm_head"])
         return x @ head.to(x.dtype)
 
-    def forward_train(self, params, tokens):
+    def forward_train(self, params, tokens, *, positions=None):
         """tokens (B, S) -> (logits (B,S,V), aux_loss)."""
         x = self.embed_tokens(params, tokens)
-        x, aux, _ = self._stack(params, x)
+        x, aux, _ = self._stack(params, x, positions=positions)
         return self.logits(params, x), aux
 
     @torch.no_grad()
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, *, positions=None):
         """Full-prompt forward; returns (last-token logits, populated cache)."""
         x = self.embed_tokens(params, tokens)
-        x, _, cache = self._stack(params, x, collect_cache=True)
+        x, _, cache = self._stack(params, x, positions=positions,
+                                  collect_cache=True)
         return self.logits(params, x[:, -1:, :]), cache
 
     @torch.no_grad()
-    def decode_step(self, params, tokens, cache, cache_index=None):
-        """tokens (B, 1) + cache -> (logits (B,1,V), new cache). The ssm
-        cache needs no position (``cache_index`` is the attention cache's,
-        kept for the reference's signature)."""
+    def decode_step(self, params, tokens, cache, cache_index=None, *,
+                    positions=None):
+        """tokens (B, 1) + cache -> (logits (B,1,V), new cache).
+        ``cache_index`` (a scalar or per-slot (B,) lengths) places the
+        token in the k/v cache; the ssm cache needs none."""
         x = self.embed_tokens(params, tokens)
-        x, _, new_cache = self._stack(params, x, cache=cache)
+        x, _, new_cache = self._stack(params, x, positions=positions,
+                                      cache=cache, cache_index=cache_index)
         return self.logits(params, x), new_cache
 
 
@@ -147,4 +254,3 @@ def pad_cache(cache: Dict[str, torch.Tensor],
 
 def build_model(cfg: ModelConfig) -> TransformerLM:
     return TransformerLM(cfg)
-

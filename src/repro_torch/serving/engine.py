@@ -47,14 +47,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import kv_cache_specs
+from repro_torch.core.metrics import percentile
 from repro_torch.models.transformer import TransformerLM, pad_cache
-
-
-def percentile(xs: List[float], q: float) -> float:
-    """The reference's ``core.metrics.percentile``."""
-    if len(xs) == 0:
-        return float("nan")
-    return float(np.percentile(np.asarray(xs, dtype=np.float64), q))
 
 
 @dataclass

@@ -4,6 +4,7 @@ exactly and the launch-count guards find no kernel launched."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,6 +58,56 @@ def test_model_phase_on_cpu_at_reduced_width():
     with pytest.raises(AssertionError, match="never launched"):
         cs.model_phase(cfg, torch.device("cpu"), prompts=(64, 40, 37, 20),
                        new_tokens=3, capacity=2, max_len=80)
+
+
+def test_dense_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 6 at reduced qwen2.5-14b width: every request answered, the
+    three prefill gates passed for every prompt (the prime 37 among them:
+    bm = bq = 1), the kernels held against their plain versions at every
+    serving shape through the comparison the card runs (``time_cases``,
+    untimed on the CPU), and the launch-count guard firing because the
+    plain versions launch nothing."""
+    cfg = get_config("qwen2.5-14b").reduced()
+    prompts = (64, 40, 37, 20)
+    with pytest.raises(AssertionError, match="fewer times than the dense"):
+        cs.dense_phase(cfg, torch.device("cpu"), prompts=prompts,
+                       new_tokens=3, capacity=2, max_len=80,
+                       f32_prompts=prompts)
+    out = capsys.readouterr().out
+    gated = [ln for ln in out.splitlines() if "bf16 layer-1 k" in ln]
+    assert len(gated) == len(prompts)
+    assert all(" ok;" in ln and "f32 layer by layer" in ln
+               and "kernels vs plain versions" in ln for ln in gated), gated
+    for M in (*prompts, 2):
+        for proj in ("up", "down"):
+            assert (f"mm_serve_{proj}_m{M} plain: max_abs=0.000e+00"
+                    in out), (proj, M)
+    for S in prompts:
+        assert f"flash_serve_s{S} plain: max_abs=0.000e+00" in out, S
+    assert "kernel not timed" in out
+    assert "greedy tokens equal to the torch-ops path's" in out
+
+
+def test_emulated_tensor_cores_round_apart_from_plain_versions():
+    """Gate (c)'s CPU rehearsal: the emulated kernels agree with the plain
+    versions to bf16 rounding on one reduced layer, and differ from them
+    (the emulation is in force inside its block and gone after it)."""
+    import dataclasses
+
+    from repro_torch.kernels.matmul import MATMUL
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("qwen2.5-14b").reduced(),
+                              use_pallas=True, dtype=torch.bfloat16)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 37)))
+    errs = cs.layerwise(model, model, params, x, 2,
+                        kern_ctx=cs.emulated_tensor_cores)
+    assert 0 < max(errs) < 5e-2, errs
+    assert cs.layerwise(model, model, params, x, 2,
+                        ref_ctx=cs.plain_versions) == [0.0, 0.0, 0.0]
+    assert "plain" not in vars(MATMUL)
 
 
 def test_route_guards():

@@ -1,19 +1,21 @@
-"""The port's configs against ``repro.configs``: every field of the archs
-the port runs, full and reduced, with JAX dtypes mapped to torch's, and
-the serving cache's shapes and dtypes."""
+"""The port's configs against ``repro.configs``: every field of every
+arch, full and reduced, with JAX dtypes mapped to torch's, and the serving
+cache's shapes and dtypes."""
 import dataclasses
 
 import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.configs import all_arch_names as jall_arch_names
 from repro.configs import get_config as jget_config
 from repro.configs import kv_cache_specs as jkv_cache_specs
-from repro_torch.configs import ModelConfig, get_config, kv_cache_specs
+from repro_torch.configs import (ModelConfig, all_arch_names, get_config,
+                                 kv_cache_specs)
 
 DTYPES = {jnp.dtype(jnp.bfloat16): torch.bfloat16,
           jnp.dtype(jnp.float32): torch.float32}
-ARCHS = ["mamba2-130m", "qwen2.5-14b"]
+ARCHS = jall_arch_names()
 
 
 @pytest.mark.parametrize("reduced", [False, True])
@@ -54,6 +56,13 @@ def test_kv_cache_specs_match_reference(arch, reduced):
     for k, (shape, dtype) in got.items():
         assert shape == want[k].shape, k
         assert dtype == DTYPES[jnp.dtype(want[k].dtype)], k
+
+
+def test_registry_matches_reference():
+    assert all_arch_names() == ARCHS
+    assert len(ARCHS) == 10
+    for arch in ARCHS:
+        assert get_config(arch).source == jget_config(arch).source
 
 
 def test_unknown_arch_raises():

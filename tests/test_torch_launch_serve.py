@@ -1,0 +1,94 @@
+"""The port's serving driver (``repro_torch.launch.serve``) and its copies
+of the traffic and latency code against the JAX package's: the same MAF2
+arrivals for the same seed, and ``serve()`` on the CPU giving the
+reference's request, shed and retry counts with the injected outage off
+and on."""
+import json
+import math
+
+import numpy as np
+import pytest
+
+from repro.core import metrics as jmetrics
+from repro.core import traffic as jtraffic
+from repro.launch import serve as jserve
+from repro_torch.core import metrics, traffic
+from repro_torch.launch import serve as tserve
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(duration=0.64, seed=0),
+                                dict(duration=30.0, mean_rate=7.0,
+                                     burstiness=5.0, level_period=2.0,
+                                     seed=3)])
+def test_maf2_trace_matches_reference(kw):
+    want = jtraffic.maf2_like_trace(**kw)
+    got = traffic.maf2_like_trace(**kw)
+    np.testing.assert_array_equal(got.arrivals, want.arrivals)
+    assert got.duration == want.duration
+
+
+def test_latency_stats_match_reference():
+    xs = np.random.default_rng(0).exponential(size=37)
+    want, got = jmetrics.LatencyStats(), metrics.LatencyStats()
+    for x in xs:
+        want.record(x)
+        got.record(x)
+    assert got.latencies == want.latencies
+    for q in ("p50", "p99"):
+        assert getattr(got, q)() == getattr(want, q)()
+    assert math.isnan(metrics.LatencyStats().p99())
+    assert metrics.percentile(list(xs), 90.0) == jmetrics.percentile(
+        list(xs), 90.0)
+
+
+def _counts(out):
+    return {k: out[k] for k in ("arch", "requests", "shed", "retries",
+                                "be_quanta")}
+
+
+def test_serve_matches_reference_counts():
+    kw = dict(requests=6, max_new_tokens=3)
+    want = jserve.serve("qwen2.5-14b", **kw)
+    got = tserve.serve("qwen2.5-14b", device="cpu", **kw)
+    assert _counts(got) == _counts(want) == {
+        "arch": "qwen2.5-14b", "requests": 6, "shed": 0, "retries": 0,
+        "be_quanta": 0}
+    assert got["device"] == "cpu"
+    assert 0 < got["p50_ms"] <= got["p99_ms"]
+
+
+def test_serve_chaos_matches_reference_counts(monkeypatch):
+    """The outage with every request arrived before it: all are queued when
+    the engine goes dark for longer than their timeout, so all are shed,
+    in both drivers, whatever the host's speed."""
+    def at_once(make):
+        def trace(**kw):
+            t = make(**kw)
+            return type(t)(np.zeros_like(t.arrivals), t.duration)
+        return trace
+
+    monkeypatch.setattr(jserve, "maf2_like_trace",
+                        at_once(jtraffic.maf2_like_trace))
+    monkeypatch.setattr(tserve, "maf2_like_trace",
+                        at_once(traffic.maf2_like_trace))
+    kw = dict(requests=6, max_new_tokens=3, chaos=True, timeout=0.05,
+              stall_s=0.2)
+    want = jserve.serve("qwen2.5-14b", **kw)
+    got = tserve.serve("qwen2.5-14b", device="cpu", **kw)
+    assert _counts(got) == _counts(want) == {
+        "arch": "qwen2.5-14b", "requests": 0, "shed": 6, "retries": 0,
+        "be_quanta": 0}
+    assert math.isnan(got["p99_ms"])
+
+
+def test_colocate_train_raises_naming_roadmap():
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+        tserve.serve("qwen2.5-14b", colocate_train=True, device="cpu")
+
+
+def test_main_prints_json(capsys):
+    assert tserve.main(["--arch", "mistral-nemo-12b", "--requests", "2",
+                        "--max-new-tokens", "2", "--device", "cpu"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == "mistral-nemo-12b"
+    assert out["requests"] == 2 and out["shed"] == 0

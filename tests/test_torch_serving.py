@@ -1,8 +1,8 @@
-"""The port's ServingEngine on reduced mamba2-130m (f32) against the JAX
-package's: the same greedy tokens for the same prompts and parameters
-(carried across through numpy), continuous batching equal to sequential
-decoding, and the same EDF admission and deadline-shed decisions on an
-injected clock."""
+"""The port's ServingEngine on reduced mamba2-130m and qwen2.5-14b (f32)
+against the JAX package's: the same greedy tokens for the same prompts and
+parameters (carried across through numpy), continuous batching equal to
+sequential decoding, and the same EDF admission and deadline-shed
+decisions on an injected clock."""
 import dataclasses
 
 import jax
@@ -21,14 +21,15 @@ from repro_torch.serving import ServingConfig, ServingEngine
 from repro_torch.weights import params_from_jax
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = dataclasses.replace(jget_config("mamba2-130m").reduced(),
+@pytest.fixture(scope="module", params=["mamba2-130m", "qwen2.5-14b"])
+def setup(request):
+    arch = request.param
+    jcfg = dataclasses.replace(jget_config(arch).reduced(),
                                dtype=jnp.float32)
     jmodel = jbuild_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    # the port on its kernel path (the plain version on the CPU)
-    cfg = dataclasses.replace(get_config("mamba2-130m").reduced(),
+    # the port on its kernel path (the plain versions on the CPU)
+    cfg = dataclasses.replace(get_config(arch).reduced(),
                               dtype=torch.float32, use_pallas=True)
     params = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     rng = np.random.default_rng(0)
