@@ -38,11 +38,22 @@ Phases, each raising on failure:
      the kernels are held against their plain versions and timed at every
      serving shape (each prompt length and a decode step);
      then the serving driver ``repro_torch.launch.serve`` once, at the
-     reduced width it runs.
-Phases 4, 5 and 6 each zero the launch counts before their path and read
-them after; every entry point of the path must have run, and no bf16
-launch may have taken a CUDA-core (f32) route. The line before the last
-is the kernels' JSON summary, the last line ``{"ok": true, "device":
+     reduced width it runs;
+  7. training on the card: (a) the gradients of mamba2-130m at full width
+     cut to 2 layers (f32) on the card against the CPU; (b) the full model
+     trained by ``repro_torch.launch.train`` for 20 steps (bf16
+     activations, f32 masters, remat, AdamW), one step traced and the
+     optimizer update timed; (c) 8 steps straight against 4 + checkpoint +
+     resume to 8, in a subprocess under deterministic algorithms
+     (``--restart-gate``); (d) the paper's scenario: phase 5's engine
+     serving its six prompts in two waves, alone and with a second
+     full-width mamba2-130m trainer taking one step in each of the idle
+     quanta between the waves; the HP tokens must be equal; (e) the
+     serving driver with ``colocate_train=True``.
+Phases 4, 5, 6 and 7 (d) each zero the launch counts before their path
+and read them after; every entry point of the path must have run, and no
+bf16 launch may have taken a CUDA-core (f32) route. The line before the
+last is the kernels' JSON summary, the last line ``{"ok": true, "device":
 {...}}``.
 """
 from __future__ import annotations
@@ -51,6 +62,8 @@ import contextlib
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -84,6 +97,14 @@ KV1_TOL = 5e-2
 # for the attention and the layer, 3.0e-3 to 3.25e-3 for the MLP (its bf16
 # input rounds apart where the attention differs), so 1e-2
 PLAIN_LAYERS, PLAIN_TOL = 2, 1e-2
+# phase 7: (a) the card's loss and gradients against the CPU's, f32 with
+# TF32 off (sums in another order); (b) the reference's training gate
+# (tests/test_train_driver.py); (c) its restart tolerance; (d) the idle
+# engine steps between the two waves, one BE quantum each
+GRAD_LOSS_TOL, GRAD_REL_TOL = 1e-4, 1e-4
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, LOSS_DROP = 20, 8, 512, 0.1
+RESTART_TOL = dict(rtol=2e-4, atol=2e-5)
+IDLE_QUANTA = 5
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -1201,6 +1222,346 @@ def rehearse_gates(layers=2, vocab=1024, prompts=PROMPTS,
 
 
 # ---------------------------------------------------------------------------
+# Training: the BE tenant
+# ---------------------------------------------------------------------------
+
+
+def leaf_paths(tree, prefix=""):
+    """``tree`` (nested dicts) with each leaf replaced by its path."""
+    if isinstance(tree, dict):
+        return {k: leaf_paths(v, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return prefix
+
+
+def grad_gate(cfg, dev, ref_dev, batch=2, seq=512, layers=2):
+    """Gate (a): loss and gradients of ``cfg`` cut to ``layers`` layers, in
+    f32, on ``dev`` against ``ref_dev`` (the path that
+    tests/test_torch_train.py holds against the JAX package), the same
+    seeded parameters and one ``SyntheticLMDataset`` batch. Returns (loss
+    error, the largest relative L2 error of a gradient leaf)."""
+    import dataclasses
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import compute_grads
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_flatten, tree_map
+    cfg = dataclasses.replace(cfg, num_layers=layers, dtype=torch.float32)
+    model = build_model(cfg)
+    ref_params = model.init(SEED, device=ref_dev)
+    params = tree_map(lambda t: t.to(dev), ref_params)
+    host = SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, batch,
+                                         seed=SEED)).batch_at(0)
+    runs = []
+    for d, p in ((dev, params), (ref_dev, ref_params)):
+        b = {k: torch.as_tensor(v, dtype=torch.long, device=d)
+             for k, v in host.items()}
+        t0 = time.monotonic()
+        loss, grads = compute_grads(model, p, b)
+        runs.append((float(loss), tree_flatten(grads)[0],
+                     time.monotonic() - t0))
+    (loss, g, t), (rloss, rg, rt) = runs
+    if not math.isfinite(loss):
+        raise AssertionError("gate (a): non-finite loss")
+    errs = [rel_err(a.to(ref_dev), b) for a, b in zip(g, rg)]
+    ok = abs(loss - rloss) <= GRAD_LOSS_TOL and max(errs) <= GRAD_REL_TOL
+    names = tree_flatten(leaf_paths(ref_params))[0]
+    worst = sorted(zip(errs, names), reverse=True)[:3]
+    print(f"  (a) {cfg.name} cut to {layers} layers (d_model {cfg.d_model}, "
+          f"vocab {cfg.vocab_size}), f32, B={batch}, S={seq}: loss "
+          f"{loss:.6f} on {dev}, {rloss:.6f} on {ref_dev} (|diff| "
+          f"{abs(loss - rloss):.2e} [<= {GRAD_LOSS_TOL:g}]); gradients of "
+          f"{len(errs)} leaves, largest rel L2 err {max(errs):.2e} "
+          f"[<= {GRAD_REL_TOL:g}] {'ok' if ok else 'FAIL'} ({t:.1f} s and "
+          f"{rt:.1f} s); largest: "
+          f"{', '.join(f'{n} {e:.2e}' for e, n in worst)}", flush=True)
+    if not ok:
+        raise AssertionError("gate (a): the card's gradients disagree with "
+                             "the CPU's")
+    return abs(loss - rloss), max(errs)
+
+
+def rehearse_grad_gate(layers=2, batch=2, seq=512, threads=(8, 1)):
+    """How far the sums' order alone moves each gradient leaf of gate (a):
+    mamba2-130m at full width cut to ``layers`` layers, f32, on the CPU
+    with each thread count of ``threads``; prints each leaf's relative L2
+    difference between the two.
+
+        python3 -c 'import chip_smoke as c; c.rehearse_grad_gate()'
+    """
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import compute_grads
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_flatten
+    cfg = dataclasses.replace(get_config("mamba2-130m"), num_layers=layers,
+                              dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(SEED, device="cpu")
+    b = {k: torch.as_tensor(v, dtype=torch.long) for k, v in
+         SyntheticLMDataset(DataConfig(cfg.vocab_size, seq, batch,
+                                       seed=SEED)).batch_at(0).items()}
+    before = torch.get_num_threads()
+    grads = []
+    try:
+        for n in threads:
+            torch.set_num_threads(n)
+            grads.append(tree_flatten(compute_grads(model, params, b)[1])[0])
+    finally:
+        torch.set_num_threads(before)
+    names = tree_flatten(leaf_paths(params))[0]
+    for name, a, c in zip(names, *grads):
+        print(f"{name}: {rel_err(a, c):.2e} between {threads[0]} and "
+              f"{threads[1]} threads")
+
+
+def train_gate(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               reduced=False):
+    """Gate (b): ``repro_torch.launch.train`` on the full mamba2-130m (its
+    reduced config with ``reduced``, for a rehearsal on the CPU), then
+    one step traced (host and device time, idle share) and the AdamW
+    update timed against its bound (each parameter, gradient and moment
+    read once, each parameter and moment written once: 28 bytes a
+    parameter)."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.device import synchronize
+    from repro_torch.launch.steps import (compute_grads, make_optimizer,
+                                          make_train_step)
+    from repro_torch.launch.train import train
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = train("mamba2-130m", reduced=reduced, steps=steps, batch=batch,
+                seq=seq, device=dev, log_every=5)
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
+    losses = out["losses"]
+    ok = all(math.isfinite(x) for x in losses) and out["loss_drop"] > LOSS_DROP
+    step_ms = float(np.median(out["step_ms"][1:]))
+    print(f"  (b) train('mamba2-130m', reduced={reduced}, steps={steps}, "
+          f"batch={batch}, seq={seq}) on {out['device']}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, drop {out['loss_drop']:.4f} "
+          f"[> {LOSS_DROP:g}], all finite: "
+          f"{all(math.isfinite(x) for x in losses)} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print(f"  step host ms (first {out['step_ms'][0]:.1f}, median of the "
+          f"rest {step_ms:.2f}), {batch * seq / step_ms * 1e3:.0f} tokens/s"
+          + ("" if peak is None else f", peak device memory {peak:.2f} GiB"))
+    if not ok:
+        raise AssertionError("gate (b): the full model did not train")
+    del out
+
+    cfg = get_config("mamba2-130m")
+    cfg = cfg.reduced() if reduced else cfg
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    opt = make_optimizer(cfg)
+    state = opt.init(params)
+    step = make_train_step(model, ShapeConfig("t", seq, batch, "train"))
+    b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+         for k, v in SyntheticLMDataset(DataConfig(
+             cfg.vocab_size, seq, batch, seed=SEED)).batch_at(0).items()}
+    profile_once(f"one train step (B={batch}, S={seq}, remat "
+                 f"{cfg.remat})", lambda: step(params, state, b), dev)
+    _, grads = compute_grads(model, params, b)
+    n = param_count_tree(params)
+    bound_ms = n * 28 / PEAK_BYTES * 1e3
+    if dev.type == "cuda":
+        ms = cuda_ms(lambda: opt.update(params, grads, state, 1.0), REPS)
+        print(f"  AdamW update of {n / 1e6:.1f} M parameters: {ms:.3f} ms, "
+              f"bound {bound_ms:.3f} ms (28 B a parameter at "
+              f"{PEAK_BYTES / 1e12:.2f} TB/s), {bound_ms / ms:.1%} of "
+              "bound", flush=True)
+    synchronize(dev)
+
+
+def restart_gate(dev, ckpt_dir, steps=8, batch=4, seq=256, reduced=False):
+    """Gate (c), the reference's restart case at full width: 8 steps
+    straight against 4 steps + checkpoint + resume to 8, final parameters
+    within the reference's tolerance. Run under deterministic algorithms
+    (``--restart-gate``: cuBLAS needs ``CUBLAS_WORKSPACE_CONFIG`` before
+    its first call)."""
+    from repro_torch.launch.train import train
+    from repro_torch.tree import tree_flatten
+    kw = dict(reduced=reduced, steps=steps, batch=batch, seq=seq,
+              log_every=100, lr=1e-2, device=dev)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.monotonic()
+    try:
+        straight = train("mamba2-130m", **kw)
+        train("mamba2-130m", ckpt_dir=str(ckpt_dir), ckpt_every=steps // 2,
+              total_steps=steps, **{**kw, "steps": steps // 2})
+        resumed = train("mamba2-130m", ckpt_dir=str(ckpt_dir),
+                        ckpt_every=100, resume=True, **kw)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    worst, same = 0.0, True
+    for a, b in zip(tree_flatten(straight["params"])[0],
+                    tree_flatten(resumed["params"])[0]):
+        a, b = a.float(), b.float()
+        excess = ((a - b).abs() - RESTART_TOL["rtol"] * b.abs()).max().item()
+        worst = max(worst, excess)
+        same = same and torch.equal(a, b)
+    ok = worst <= RESTART_TOL["atol"]
+    print(f"  (c) {steps} steps straight vs {steps // 2} + checkpoint + "
+          f"resume ({'reduced' if reduced else 'full'} width, B={batch}, "
+          f"S={seq}, deterministic algorithms: "
+          f"{torch.are_deterministic_algorithms_enabled()}): bit-equal "
+          f"{same}; max(|diff| - rtol|ref|) "
+          f"{worst:.2e} [<= atol {RESTART_TOL['atol']:g}, rtol "
+          f"{RESTART_TOL['rtol']:g}] {'ok' if ok else 'FAIL'}; losses "
+          f"{[round(x, 4) for x in straight['losses'][steps // 2:]]} and "
+          f"{[round(x, 4) for x in resumed['losses']]}; "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    if not ok:
+        raise AssertionError("gate (c): the resumed run disagrees with the "
+                             "straight run")
+
+
+def serve_waves(model, params, scfg, prompts, new_tokens, hook=None,
+                idle=IDLE_QUANTA):
+    """The prompts through a fresh ServingEngine in two waves: the first
+    half, run until idle, then ``idle`` engine steps with nothing to serve
+    (each one best-effort quantum when ``hook`` is given), then the second
+    half. Returns (requests, the engine's BE quanta)."""
+    from repro_torch.device import synchronize
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(model, params, scfg, best_effort_hook=hook)
+    half = len(prompts) // 2
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts[:half]]
+    eng.run_until_idle()
+    for _ in range(idle):
+        eng.step()
+    reqs += [eng.submit(p, max_new_tokens=new_tokens)
+             for p in prompts[half:]]
+    eng.run_until_idle()
+    synchronize(params["embed"].device)
+    return reqs, eng.be_quanta
+
+
+def colocation_gate(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
+                    capacity=4, max_len=1024, be_batch=TRAIN_BATCH,
+                    be_seq=TRAIN_SEQ):
+    """Gate (d), the paper's scenario: phase 5's engine (use_pallas) serves
+    ``prompts`` in two waves, alone and with a second model's trainer
+    (torch ops, parameters from ``SEED + 1``) taking one train step in each
+    idle quantum between the waves. The HP tokens must be equal, token for
+    token; every HP prefill must launch the SSD kernel. Returns the launch
+    counts of the co-located run."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.device import synchronize
+    from repro_torch.launch.serve import BestEffortTrainer
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import ServingConfig
+    model = build_model(dataclasses.replace(cfg, use_pallas=True))
+    params = model.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    toks = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in prompts]
+    scfg = ServingConfig(capacity=capacity, max_len=max_len)
+    trainer = BestEffortTrainer(
+        build_model(dataclasses.replace(cfg, use_pallas=False)),
+        batch=be_batch, seq=be_seq, seed=SEED, device=dev)
+    quantum_s = []
+
+    def be_quantum():
+        t = time.monotonic()
+        trainer()
+        synchronize(dev)
+        quantum_s.append(time.monotonic() - t)
+
+    serve_waves(model, params, scfg, toks[-2:-1], 2, idle=0)   # warm-up
+    alone, _ = serve_waves(model, params, scfg, toks, new_tokens)
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    coloc, quanta = serve_waves(model, params, scfg, toks, new_tokens,
+                                hook=be_quantum)
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+
+    same = sum(a.tokens == b.tokens for a, b in zip(alone, coloc))
+    losses = [float(x) for x in trainer.losses]
+    ok = (same == len(prompts) and quanta == trainer.quanta == IDLE_QUANTA
+          and all(math.isfinite(x) for x in losses)
+          and all(r.done and len(r.tokens) == new_tokens for r in coloc))
+    for label, reqs in (("alone", alone), ("co-located", coloc)):
+        ttft = [r.ttft for r in reqs]
+        lat = [r.latency for r in reqs]
+        print(f"  HP {label}: TTFT p50 {pct(ttft, 50):.1f} ms, p99 "
+              f"{pct(ttft, 99):.1f} ms; latency p50 {pct(lat, 50):.1f} ms, "
+              f"p99 {pct(lat, 99):.1f} ms", flush=True)
+    print(f"  (d) {len(prompts)} requests in two waves, {quanta} BE quanta "
+          f"between them [== {IDLE_QUANTA}]: HP tokens equal in {same}/"
+          f"{len(prompts)} requests; BE losses {[round(x, 4) for x in losses]}"
+          f" (finite: {all(math.isfinite(x) for x in losses)}); BE quantum "
+          f"(one train step of B={be_batch}, S={be_seq}) "
+          f"{[round(q * 1e3, 1) for q in quantum_s]} ms, longest "
+          f"{max(quantum_s, default=0) * 1e3:.1f} ms: the longest an HP "
+          f"request arriving in a quantum waits {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("gate (d): the co-located BE job changed the HP "
+                             "answers or did not take its quanta")
+    print(f"  launches on the co-located path: {json.dumps(counts)}")
+    cuda_core_guard(counts, "co-located path")
+    need = cfg.num_layers * len(prompts)
+    if counts["ssd_plain"] < need:
+        raise AssertionError(f"ssd_plain launched {counts['ssd_plain']} "
+                             f"times on the co-located path, fewer than "
+                             f"{need}: not every HP prefill ran the kernel")
+    return counts
+
+
+def training_phase(mcfg, dev):
+    """Phase 7, gates (a) to (e); returns the launch counts of (d)."""
+    t0 = time.monotonic()
+    grad_gate(mcfg, dev, torch.device("cpu"))
+    train_gate(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = Path(__file__).resolve().parent / "build" / "restart_gate"
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--restart-gate", str(ckpt)], env=env,
+                         capture_output=True, text=True, timeout=600)
+    sys.stdout.write(run.stdout)
+    if run.returncode != 0:
+        sys.stdout.write(run.stderr[-4000:])
+        raise AssertionError(f"gate (c) exited {run.returncode}")
+    counts = colocation_gate(mcfg, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.launch.serve import serve as serve_driver
+    out = serve_driver("mamba2-130m", requests=16, colocate_train=True)
+    print(f"  (e) repro_torch.launch.serve.serve('mamba2-130m', requests=16, "
+          f"colocate_train=True) (reduced width): {json.dumps(out)}",
+          flush=True)
+    if (out["requests"] != 16 or out["shed"] or out["device"] != "cuda:0"
+            or out["be_quanta"] <= 0):
+        raise AssertionError("gate (e): the co-located serving driver did "
+                             "not answer every request on the card with "
+                             "BE quanta taken")
+    print(f"  phase 7 in {time.monotonic() - t0:.1f} s", flush=True)
+    return counts
+
+
+def restart_main(ckpt_dir: str) -> int:
+    """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
+    deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    restart_gate(torch.device("cuda"), Path(ckpt_dir))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1288,6 +1649,12 @@ def main() -> int:
     if out["requests"] != 16 or out["shed"] or out["device"] != "cuda:0":
         raise AssertionError("the serving driver did not answer every "
                              "request on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[7] training on the card: gradients, the full model, restart, "
+          "co-location with the served model", flush=True)
+    c_counts = training_phase(mcfg, dev)
 
     summary = []
     for fam, label, shape, route in lines:
@@ -1296,7 +1663,8 @@ def main() -> int:
             name = fam.symbol(route, form)
             by_path = {"server": counts[name],
                        "mamba2_serving": m_counts[name],
-                       "qwen_serving": d_counts[name]}
+                       "qwen_serving": d_counts[name],
+                       "colocated": c_counts[name]}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,
@@ -1312,4 +1680,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--restart-gate"]:
+        sys.exit(restart_main(sys.argv[2]))
     sys.exit(main())

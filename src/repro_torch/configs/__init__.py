@@ -1,7 +1,8 @@
 """Architecture registry — importing this package registers all configs
 (the reference's ten; the model builds the dense, vlm and ssm ones)."""
 from repro_torch.configs.base import (REGISTRY, HybridConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, all_arch_names,
+                                      MoEConfig, SSMConfig, ShapeConfig,
+                                      all_arch_names,
                                       get_config, kv_cache_specs)
 
 from repro_torch.configs import (arctic_480b, codeqwen15_7b,  # noqa: F401
@@ -11,5 +12,6 @@ from repro_torch.configs import (arctic_480b, codeqwen15_7b,  # noqa: F401
 
 __all__ = [
     "REGISTRY", "HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",
+    "ShapeConfig",
     "all_arch_names", "get_config", "kv_cache_specs",
 ]

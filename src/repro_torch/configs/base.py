@@ -215,6 +215,19 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode | long_decode
+
+
+# ---------------------------------------------------------------------------
 # Serving cache
 # ---------------------------------------------------------------------------
 

@@ -2,11 +2,13 @@
 ``repro.launch.serve``).
 
 The paper's end-to-end scenario on real (reduced) models: a high-priority
-serving engine handles MAF2-style traffic; the reference also co-locates a
-best-effort training job through the engine's opportunistic hook, which
-waits for the port's training stack.
+serving engine handles MAF2-style traffic while a best-effort training job
+(``--colocate-train``) takes one train step in each idle quantum through
+the engine's opportunistic hook: the engine-level mirror of Fig. 4 (the
+kernel-level path is ``core.virtualization``).
 
-    python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 24
+    python -m repro_torch.launch.serve --arch qwen2.5-14b --requests 24 \
+        --colocate-train
 
 Request-level resilience: ``--chaos`` injects a mid-run outage (the engine
 blocks, queued requests blow their per-request timeout); ``--failover``
@@ -25,13 +27,43 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import all_arch_names, get_config
+from repro_torch.configs.base import ShapeConfig, all_arch_names, get_config
 from repro_torch.core.metrics import LatencyStats
 from repro_torch.core.traffic import maf2_like_trace
+from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import build_model
+from repro_torch.launch.steps import make_optimizer, make_train_step
+from repro_torch.models.transformer import TransformerLM, build_model
 from repro_torch.serving import (BrownoutPolicy, HedgePolicy, RetryPolicy,
                                  ServingConfig, ServingEngine)
+
+
+class BestEffortTrainer:
+    """The co-located best-effort job: each call is one train step of
+    ``model`` (parameters drawn from ``seed + 1``, the optimizer that
+    ``model.cfg.optimizer`` names) on batch ``quanta`` of a synthetic
+    dataset seeded with ``seed``, as the reference's ``be_step``."""
+
+    def __init__(self, model: TransformerLM, *, batch: int = 2,
+                 seq: int = 32, seed: int = 0,
+                 device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        self.step_fn = make_train_step(model, ShapeConfig("be", seq, batch,
+                                                          "train"))
+        self.params = model.init(seed + 1, device=self.device)
+        self.opt_state = make_optimizer(model.cfg).init(self.params)
+        self.data = SyntheticLMDataset(DataConfig(model.cfg.vocab_size, seq,
+                                                  batch, seed=seed))
+        self.quanta = 0
+        self.losses = []
+
+    def __call__(self) -> None:
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=self.device)
+                 for k, v in self.data.batch_at(self.quanta).items()}
+        self.params, self.opt_state, m = self.step_fn(
+            self.params, self.opt_state, batch)
+        self.losses.append(m["loss"])
+        self.quanta += 1
 
 
 def serve(arch: str, *, requests: int = 16, capacity: int = 4,
@@ -41,13 +73,12 @@ def serve(arch: str, *, requests: int = 16, capacity: int = 4,
           timeout: Optional[float] = None, chaos: bool = False,
           failover: bool = False, stall_s: float = 8.0,
           device: Union[str, torch.device, None] = None) -> dict:
-    if colocate_train:
-        raise NotImplementedError(
-            "colocate_train needs the port's training stack (launch/steps.py "
-            "and optim/): ROADMAP Queue 1 item 3")
     cfg = get_config(arch).reduced()
     model = build_model(cfg)
-    params = model.init(seed, device=resolve_device(device))
+    dev = resolve_device(device)
+    params = model.init(seed, device=dev)
+    be = (BestEffortTrainer(model, seed=seed, device=dev) if colocate_train
+          else None)
 
     if chaos and timeout is None:
         # chaos without deadlines is invisible; the default budget sits
@@ -68,8 +99,8 @@ def serve(arch: str, *, requests: int = 16, capacity: int = 4,
     engine = ServingEngine(model, params,
                            ServingConfig(capacity, max_len,
                                          request_timeout=timeout),
-                           obs=obs, retry=retry, hedge=hedge,
-                           brownout=brownout)
+                           best_effort_hook=be, obs=obs, retry=retry,
+                           hedge=hedge, brownout=brownout)
     rng = np.random.default_rng(seed)
     trace = maf2_like_trace(duration=requests / mean_rate * 2,
                             mean_rate=mean_rate, seed=seed)
@@ -103,7 +134,7 @@ def serve(arch: str, *, requests: int = 16, capacity: int = 4,
                        + engine.shed_requests),
         "p50_ms": lat.p50() * 1e3,
         "p99_ms": lat.p99() * 1e3,
-        "be_quanta": 0,
+        "be_quanta": 0 if be is None else be.quanta,
         "wall_s": time.monotonic() - t0,
         "device": str(params["embed"].device),
     }
@@ -117,7 +148,8 @@ def main(argv=None) -> int:
     ap.add_argument("--capacity", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--colocate-train", action="store_true",
-                    help="not ported yet: needs the training stack")
+                    help="a best-effort trainer takes one step in each "
+                         "idle quantum of the engine")
     ap.add_argument("--chaos", action="store_true",
                     help="inject a mid-run engine outage (arms per-request "
                          "timeouts)")

@@ -12,6 +12,11 @@ parameters, in the reference's layout (``layers/p{p}/attn/wq`` keeps its
 leading layer axis), so that a JAX parameter tree carried across through
 numpy runs unchanged. The moe, hybrid and audio families need the MoE block
 and the encoder, which the port does not have yet; building one raises.
+
+Training (``forward_train``, ``loss_fn``) differentiates through torch ops
+with autograd; with ``cfg.remat`` each period of the stack is recomputed in
+the backward pass (``torch.utils.checkpoint``), as the reference wraps its
+period step in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ import math
 from typing import Any, Dict, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -51,6 +57,16 @@ def _layer(tree, i: int):
     if isinstance(tree, torch.Tensor):
         return tree[i]
     return {k: _layer(v, i) for k, v in tree.items()}
+
+
+def _layers(tree, n: int):
+    """The ``n`` layers of a stacked parameter subtree, each a tree of views
+    (one ``unbind`` a leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a full-size gradient per layer)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.unbind(0)
+    subs = {k: _layers(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in subs.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -172,33 +188,47 @@ class TransformerLM:
         return x, h, m, new
 
     def _stack(self, params, x, *, positions=None, cache=None,
-               cache_index=None, collect_cache=False):
+               cache_index=None, collect_cache=False, remat=False):
         """Run the layer stack. Returns (x, aux_loss, new_cache | None);
         with ``cache`` (the tree of ``kv_cache_specs``, leading dim n_attn /
-        n_ssm) it runs decode (S == 1)."""
+        n_ssm) it runs decode (S == 1). With ``remat`` each period is
+        recomputed in the backward pass instead of keeping its
+        activations."""
         decode = cache is not None
         ys: Dict[str, list] = {}
         n = {"attn": 0, "ssm": 0}      # attention / ssm layers so far
         keys = {"attn": ("k", "v"), "ssm": ("conv_state", "ssm_state")}
+        layers = [_layers(params["layers"][f"p{p}"], self.n_periods)
+                  for p in range(self.period)]
+
+        def period_step(x, i):
+            for p in range(self.period):
+                x = self._sublayer(p, layers[p][i], x,
+                                   positions=positions)[0]
+            return x
+
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if not (decode or collect_cache):
+            for i in range(self.n_periods):
+                x = (checkpoint(period_step, x, i, use_reentrant=False)
+                     if remat else period_step(x, i))
+            return x, aux, None
         for i in range(self.n_periods):
             for p in range(self.period):
                 kind = self.mixer_kind[p]
                 entry = (tuple(cache[k][n[kind]] for k in keys[kind])
                          if decode else None)
                 x, _, _, new = self._sublayer(
-                    p, _layer(params["layers"][f"p{p}"], i), x,
+                    p, layers[p][i], x,
                     positions=positions, cache=entry,
                     cache_index=cache_index, collect_cache=collect_cache)
                 for k, v in (new or {}).items():
                     ys.setdefault(k, []).append(v)
                 n[kind] += 1
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        new_cache = None
-        if decode or collect_cache:
-            new_cache = {k: torch.stack(v) for k, v in ys.items()}
-            if decode:  # static entries pass through
-                for k in cache:
-                    new_cache.setdefault(k, cache[k])
+        new_cache = {k: torch.stack(v) for k, v in ys.items()}
+        if decode:  # static entries pass through
+            for k in cache:
+                new_cache.setdefault(k, cache[k])
         return x, aux, new_cache
 
     # -- public entry points ---------------------------------------------------
@@ -216,7 +246,8 @@ class TransformerLM:
     def forward_train(self, params, tokens, *, positions=None):
         """tokens (B, S) -> (logits (B,S,V), aux_loss)."""
         x = self.embed_tokens(params, tokens)
-        x, aux, _ = self._stack(params, x, positions=positions)
+        x, aux, _ = self._stack(params, x, positions=positions,
+                                remat=self.cfg.remat)
         return self.logits(params, x), aux
 
     @torch.no_grad()
@@ -237,6 +268,27 @@ class TransformerLM:
         x, _, new_cache = self._stack(params, x, positions=positions,
                                       cache=cache, cache_index=cache_index)
         return self.logits(params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean token CE, f32. logits (B,S,V), targets (B,S) integer."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+def loss_fn(model: TransformerLM, params, batch: Dict[str, torch.Tensor]):
+    logits, aux = model.forward_train(params, batch["tokens"],
+                                      positions=batch.get("positions"))
+    ce = cross_entropy(logits, batch["targets"])
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def pad_cache(cache: Dict[str, torch.Tensor],

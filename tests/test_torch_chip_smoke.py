@@ -174,3 +174,36 @@ def test_bound_counts_each_ssd_tensor_once():
         assert cs.launch_bytes(d) == d.bytes_accessed
         assert cs.bound(d) == (max(t_ops, t_bytes), "operations"
                                if t_ops >= t_bytes else "bytes")
+
+
+def test_training_gates_on_cpu_at_reduced_width(tmp_path, capsys):
+    """Phase 7's gates (a)-(c) on the CPU at reduced mamba2 width: the
+    gradient comparison (the CPU against itself: exactly equal), the
+    training gate and the restart gate (bit-exact on the CPU)."""
+    dev = torch.device("cpu")
+    cfg = get_config("mamba2-130m").reduced()
+    assert cs.grad_gate(cfg, dev, dev, batch=2, seq=64) == (0.0, 0.0)
+    cs.train_gate(dev, steps=12, batch=4, seq=32, reduced=True)
+    cs.restart_gate(dev, tmp_path / "ck", batch=2, seq=32, reduced=True)
+    out = capsys.readouterr().out
+    assert "(a) mamba2-130m cut to 2 layers" in out and "] ok (" in out
+    assert "(b) train('mamba2-130m', reduced=True" in out
+    assert "(c) 8 steps straight vs 4 + checkpoint + resume" in out
+    assert "bit-equal True" in out
+    assert not (tmp_path / "ck").exists()
+
+
+def test_colocation_gate_on_cpu_at_reduced_width(capsys):
+    """Phase 7 (d) at reduced mamba2 width: the HP tokens equal with and
+    without the BE trainer, exactly 5 quanta taken between the waves, and
+    the launch-count guard firing because the plain versions launch
+    nothing."""
+    cfg = get_config("mamba2-130m").reduced()
+    with pytest.raises(AssertionError, match="not every HP prefill"):
+        cs.colocation_gate(cfg, torch.device("cpu"), prompts=(64, 40, 37, 20),
+                           new_tokens=3, capacity=2, max_len=80, be_batch=2,
+                           be_seq=32)
+    out = capsys.readouterr().out
+    assert "HP tokens equal in 4/4 requests" in out
+    assert "5 BE quanta between them" in out and "ok" in out
+    assert "HP co-located: TTFT p50" in out

@@ -82,8 +82,59 @@ def test_serve_chaos_matches_reference_counts(monkeypatch):
 
 
 def test_colocate_train_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        tserve.serve("qwen2.5-14b", colocate_train=True, device="cpu")
+    """Co-located training runs on the families the port builds; on one it
+    does not build yet (moe) it raises and names the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
+        tserve.serve("qwen3-moe-30b-a3b", colocate_train=True, device="cpu")
+
+
+def test_serve_colocate_train_answers_all():
+    """The best-effort trainer beside the served model: every request
+    answered, at least one idle quantum taken, every BE loss finite."""
+    out = tserve.serve("mamba2-130m", requests=6, colocate_train=True,
+                       device="cpu")
+    assert out["requests"] == 6 and out["shed"] == 0
+    assert out["be_quanta"] > 0
+
+
+def test_be_quanta_equal_straight_train_steps(monkeypatch):
+    """After k quanta of the serving driver's BE job its parameters equal k
+    straight train steps of the same model from the same seed (seed + 1)
+    on the same batches (``batch_at(0..k-1)`` of the dataset seeded with
+    ``seed``), bit for bit on the CPU."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.steps import make_optimizer, make_train_step
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_leaves
+    made = []
+
+    class Recorded(tserve.BestEffortTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(tserve, "BestEffortTrainer", Recorded)
+    out = tserve.serve("qwen2.5-14b", requests=4, max_new_tokens=2,
+                       colocate_train=True, seed=3, device="cpu")
+    (be,) = made
+    k = out["be_quanta"]
+    assert k == be.quanta > 0 and len(be.losses) == k
+    assert all(torch.isfinite(x) for x in be.losses)
+    model = build_model(get_config("qwen2.5-14b").reduced())
+    params = model.init(4, device="cpu")
+    state = make_optimizer(model.cfg).init(params)
+    step = make_train_step(model, ShapeConfig("be", 32, 2, "train"))
+    ds = SyntheticLMDataset(DataConfig(model.cfg.vocab_size, 32, 2, seed=3))
+    for i in range(k):
+        batch = {n: torch.as_tensor(v, dtype=torch.long)
+                 for n, v in ds.batch_at(i).items()}
+        params, state, _ = step(params, state, batch)
+    assert int(state.step) == int(be.opt_state.step) == k
+    for a, b in zip(tree_leaves(params), tree_leaves(be.params)):
+        assert torch.equal(a, b)
 
 
 def test_main_prints_json(capsys):
