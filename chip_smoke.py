@@ -49,10 +49,24 @@ Phases, each raising on failure:
      serving its six prompts in two waves, alone and with a second
      full-width mamba2-130m trainer taking one step in each of the idle
      quanta between the waves; the HP tokens must be equal; (e) the
-     serving driver with ``colocate_train=True``.
-Phases 4, 5, 6 and 7 (d) each zero the launch counts before their path
-and read them after; every entry point of the path must have run, and no
-bf16 launch may have taken a CUDA-core (f32) route. The line before the
+     serving driver with ``colocate_train=True``;
+  8. the MoE and audio model paths: (a) qwen3-moe-30b-a3b at full width
+     cut to 24 of its 48 layers (15.6 B f32 parameters) on its use_pallas
+     path behind the ServingEngine, phase 5's 6 requests; every prefill of
+     every layer runs flash attention (G = 8, D = 128), the MoE block runs
+     torch ops as the reference's runs einsums; each prompt's prefill held
+     layer by layer from one input against the torch-ops path and the
+     kernels' plain versions, the flipped top-k share printed; flash timed
+     at each served length; then the serving driver on reduced qwen3-moe
+     and jamba; (b) whisper-base whole (109.7 M parameters): the encoder
+     on 2 x 1500 random frame embeddings (non-causal flash attention, the
+     SwiGLU matmuls at M = 3000), a 16-token decoder prefill and 8 greedy
+     decode steps (matmuls at M = 2) with the cross K/V in the cache, every
+     token row of each kernel-bearing sub-block held from one input
+     against the torch-ops path and the plain versions.
+Phases 4, 5, 6, 7 (d), 8 (a) and 8 (b) each zero the launch counts before
+their path and read them after; every entry point of the path must have
+run, and no bf16 launch may have taken a CUDA-core (f32) route. The line before the
 last is the kernels' JSON summary, the last line ``{"ok": true, "device":
 {...}}``.
 """
@@ -105,6 +119,20 @@ GRAD_LOSS_TOL, GRAD_REL_TOL = 1e-4, 1e-4
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, LOSS_DROP = 20, 8, 512, 0.1
 RESTART_TOL = dict(rtol=2e-4, atol=2e-5)
 IDLE_QUANTA = 5
+# phase 8 (a): qwen3-moe-30b-a3b at full width, cut to MOE_LAYERS of its 48
+# layers (15.58 B f32 parameters, 58.0 GiB; all 48 layers hold 113.7 GiB);
+# gate (b), relative L2 error of each layer's bf16 attention sub-block on
+# the kernel path against the torch-ops path from the same input: the CPU
+# rehearsal (``rehearse_phase8``) gives 1.7e-2 to 2.1e-2, so 5e-2
+MOE_LAYERS = 24
+MOE_ATTN_TOL = 5e-2
+# phase 8 (b): whisper-base whole, B = 2 sequences of 1500 frames, a
+# 16-token prompt and 8 greedy decode steps; relative L2 error of each row
+# (one token) of each bf16 sub-block on the kernel path against the
+# torch-ops path from the same input: the CPU rehearsal
+# (``rehearse_phase8``) gives at most 2.8e-3, so 5e-2, as MOE_ATTN_TOL
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 2, 16, 8
+WHISPER_TOL = 5e-2
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -865,9 +893,10 @@ def model_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
 
 
 def where_the_time_goes(model, params, cfg, dev, prompt, capacity,
-                        max_len=1):
+                        max_len=1, span=None):
     """One lone prefill and one decode step of ``capacity`` slots, each
-    slot holding the prompt (a k/v cache of ``max_len`` positions)."""
+    slot holding the prompt (a k/v cache of ``max_len`` positions), each
+    traced by ``profile_once`` (with its ``span``)."""
     from repro_torch.configs import kv_cache_specs
     x = torch.as_tensor(prompt[None], dtype=torch.long, device=dev)
     cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (
@@ -876,16 +905,37 @@ def where_the_time_goes(model, params, cfg, dev, prompt, capacity,
     lengths = torch.full((capacity,), min(len(prompt), max_len - 1),
                          dtype=torch.int32, device=dev)
     profile_once(f"prefill {len(prompt)} tokens",
-                 lambda: model.prefill(params, x), dev)
+                 lambda: model.prefill(params, x), dev, span)
     profile_once(f"decode step, {capacity} slots",
-                 lambda: model.decode_step(params, tok, cache, lengths), dev)
+                 lambda: model.decode_step(params, tok, cache, lengths), dev,
+                 span)
 
 
-def profile_once(label, fn, dev) -> None:
+@contextlib.contextmanager
+def traced_as(owner, name: str):
+    """Within the block, every call of ``owner.name`` runs inside a
+    torch.profiler range called ``name``, so that ``profile_once`` can
+    read its kernels' share of the trace."""
+    fn = getattr(owner, name)
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kw)
+
+    setattr(owner, name, ranged)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def profile_once(label, fn, dev, span=None) -> None:
     """``fn`` timed on the host clock (after one warm-up call) and traced
     by torch.profiler: device-busy time (the kernels' summed self time),
-    idle share and the top kernels. The profiler's own host cost inflates
-    the traced wall time."""
+    idle share and the top kernels; with ``span``, the device time of the
+    kernels launched inside the profiler ranges of that name
+    (``traced_as``) and their share of the busy time, from the same trace.
+    The profiler's own host cost inflates the traced wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.device import synchronize
@@ -903,17 +953,24 @@ def profile_once(label, fn, dev) -> None:
         synchronize(dev)
         traced = time.monotonic() - t
     # the kernels' own events (an operator's self device time repeats its
-    # kernels' time)
+    # kernels' time; a range's device-side annotation is not a kernel)
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA and e.key != span),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
               "(the profiler saw no device activity)")
         return
+    within = ""
+    if span is not None:
+        # a host range's device time is its launched kernels' time
+        ms = sum(e.device_time_total for e in prof.events()
+                 if e.name == span and e.device_type == DeviceType.CPU) / 1e3
+        within = f", {span} {ms:.3f} ms of it ({ms / busy:.1%})"
     print(f"  {label}: {bare * 1e3:.2f} ms; traced {traced * 1e3:.2f} ms, "
-          f"device busy {busy:.3f} ms, idle share "
+          f"device busy {busy:.3f} ms{within}, idle share "
           f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
     for ms, count, key in rows[:6]:
         print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
@@ -1086,35 +1143,48 @@ def weight_cast_ms(params, cfg) -> float:
     return ms
 
 
-def serving_cases(cfg, dev, prompts=PROMPTS, decode_rows=4):
-    """The dense serving path's kernel launches at full width (bf16), at
-    each prompt length that phase 6 serves: the MLP's up-projection (E x F,
-    as x @ wg and x @ wi) and down-projection (F x E) at M = the prompt
-    length and at a decode step of ``decode_rows`` slots, and the prefill's
-    flash attention (block geometry of the reference's ``_pick_block``:
-    bm = bq = 1 at a prime length)."""
-    from repro_torch.kernels.flash_attention import flash_attention_desc
+def mm_serve_cases(cfg, dev, Ms, rng):
+    """The SwiGLU MLP's launches (bf16) at each row count in ``Ms``: the
+    up-projection (E x F, as x @ wg and x @ wi) and the down-projection
+    (F x E), block geometry of the reference's ``_pick_block``."""
     from repro_torch.kernels.matmul import matmul_desc
-    rng = np.random.default_rng(SEED + 5)
     bf = torch.bfloat16
     E, F = cfg.d_model, cfg.d_ff
-    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    seqs = sorted(set(prompts), reverse=True)
     weights = {"up": tensor(rng, (E, F), bf, dev, 1 / math.sqrt(E)),
                "down": tensor(rng, (F, E), bf, dev, 1 / math.sqrt(F))}
     cases = {}
-    for M in (*seqs, decode_rows):
+    for M in Ms:
         for proj, w in weights.items():
             K, N = w.shape
             cases[f"mm_serve_{proj}_m{M}"] = (
                 matmul_desc(M, K, N, bf), (tensor(rng, (M, K), bf, dev), w))
-    for S in seqs:
-        cases[f"flash_serve_s{S}"] = (
-            flash_attention_desc(H, S, S, D, H // KVH, bf, causal=True),
-            (tensor(rng, (H, S, D), bf, dev), tensor(rng, (KVH, S, D), bf,
-                                                     dev),
-             tensor(rng, (KVH, S, D), bf, dev)))
     return cases
+
+
+def flash_serve_cases(cfg, dev, seqs, rng, batch=1, causal=True,
+                      label="flash_serve"):
+    """A prefill's flash attention (bf16) at the model's heads, at each
+    length in ``seqs`` for ``batch`` sequences (bq = 1 at a prime
+    length)."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    bf = torch.bfloat16
+    H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    BH, BKV = batch * H, batch * KVH
+    return {f"{label}_s{S}": (
+        flash_attention_desc(BH, S, S, D, H // KVH, bf, causal=causal),
+        (tensor(rng, (BH, S, D), bf, dev), tensor(rng, (BKV, S, D), bf, dev),
+         tensor(rng, (BKV, S, D), bf, dev))) for S in seqs}
+
+
+def serving_cases(cfg, dev, prompts=PROMPTS, decode_rows=4):
+    """The dense serving path's kernel launches at full width (bf16), at
+    each prompt length that phase 6 serves: the MLP's matmuls at M = the
+    prompt length and at a decode step of ``decode_rows`` slots, and the
+    prefill's flash attention."""
+    rng = np.random.default_rng(SEED + 5)
+    seqs = sorted(set(prompts), reverse=True)
+    return {**mm_serve_cases(cfg, dev, (*seqs, decode_rows), rng),
+            **flash_serve_cases(cfg, dev, seqs, rng)}
 
 
 def dense_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
@@ -1548,6 +1618,489 @@ def training_phase(mcfg, dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the MoE and audio model paths
+# ---------------------------------------------------------------------------
+
+
+def flash_bq(cfg, S: int) -> int:
+    """The query block of a prefill's flash launch at length ``S``."""
+    from repro_torch.kernels.flash_attention import flash_attention_desc
+    return flash_attention_desc(cfg.num_heads, S, S, cfg.head_dim_,
+                                cfg.q_per_kv).static["bq"]
+
+
+def moe_layerwise(kern, ref, params, x, layers,
+                  kern_ctx=contextlib.nullcontext,
+                  ref_ctx=contextlib.nullcontext):
+    """Phase 8 (a)'s gates for one prompt, each of the first ``layers``
+    layers from the same input (``ref``'s output of the layer before): the
+    attention sub-block of ``kern`` (inside ``kern_ctx()``) against
+    ``ref``'s (inside ``ref_ctx()``), and the share of tokens whose top-k
+    set differs when each router is fed its own side's attention output.
+    The next layer starts from ``ref``'s MoE block (torch ops on both
+    paths: near-tied experts flip on the attention's rounding and move a
+    token by O(1), so the paths are not compared past the router). Returns
+    (largest attention relative error, flipped share)."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import choose
+    from repro_torch.models.transformer import _layer
+    cfg = ref.cfg
+    h = ref.embed_tokens(params, x)
+    attn = 0.0
+    flips = tokens = 0
+    for i in range(layers):
+        lp = _layer(params["layers"]["p0"], i)
+        with kern_ctx():
+            xk, ak, _ = kern._mixer(0, lp, h)
+        with ref_ctx():
+            xr, ar, _ = ref._mixer(0, lp, h)
+        attn = max(attn, rel_err(ak, ar))
+        h, _, _ = ref._ffn(0, lp, xr)
+        sets = [choose(lp["ffn"], rms_norm(z, lp["ln2"], cfg.rms_eps),
+                       cfg)[2].sort(dim=-1).values for z in (xk, xr)]
+        flips += int((sets[0] != sets[1]).any(dim=-1).sum())
+        tokens += sets[0][..., 0].numel()
+    return attn, flips / tokens
+
+
+def moe_gates(cfg, dev, params, prompts, toks):
+    """Each prompt's prefill on the kernel path against the torch-ops path
+    and the kernels' plain versions, layer by layer from one input
+    (``moe_layerwise``). Gated: (a) with f32 activations, every layer's
+    attention sub-block within MODEL_TOL_F32 of the torch-ops path's; (b)
+    in bf16, as served, every layer's attention within MOE_ATTN_TOL of the
+    torch-ops path's; (c) in bf16, the first PLAIN_LAYERS layers (one at a
+    length whose query block is 1 row, where the plain version takes
+    seconds a layer) within PLAIN_TOL of the kernels' plain versions.
+    Printed: the flipped top-k share and the bf16 and f32 logits' errors
+    through the whole prefill. Returns the torch-ops model and each
+    prompt's greedy first token from the kernel path's own prefill."""
+    import dataclasses
+    from repro_torch.models.transformer import build_model
+    models = {pal: build_model(dataclasses.replace(cfg, use_pallas=pal))
+              for pal in (True, False)}
+    f32 = [build_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                           use_pallas=pal))
+           for pal in (True, False)]
+    L = cfg.num_layers
+    firsts = []
+    for n, t in zip(prompts, toks):
+        x = torch.as_tensor(t[None], dtype=torch.long, device=dev)
+        t0 = time.monotonic()
+        lk, _ = models[True].prefill(params, x)
+        lp, _ = models[False].prefill(params, x)
+        if not torch.isfinite(lk).all():
+            raise AssertionError(f"prefill of {n} tokens: non-finite")
+        firsts.append(int(lk[0, -1].argmax()))
+        l32 = rel_err(*(m.prefill(params, x)[0] for m in f32))
+        e16 = moe_layerwise(models[True], models[False], params, x, L)
+        pl = 1 if flash_bq(cfg, n) == 1 else PLAIN_LAYERS
+        ep = moe_layerwise(models[True], models[True], params, x, pl,
+                           ref_ctx=plain_versions)
+        e32 = moe_layerwise(*f32, params, x, L)
+        ok = (e32[0] <= MODEL_TOL_F32 and e16[0] <= MOE_ATTN_TOL
+              and ep[0] <= PLAIN_TOL)
+        print(f"  prefill {n} tokens: (a) f32 layer by layer: attention "
+              f"{e32[0]:.2e} [<= {MODEL_TOL_F32:g}], flipped top-"
+              f"{cfg.moe.experts_per_token} sets {e32[1]:.2%}; "
+              f"(b) bf16 layer by layer: attention {e16[0]:.2e} "
+              f"[<= {MOE_ATTN_TOL:g}], flipped sets {e16[1]:.2%} (not "
+              f"gated); (c) bf16 kernels vs plain versions, {pl} layers: "
+              f"attention {ep[0]:.2e} [<= {PLAIN_TOL:g}], flipped sets "
+              f"{ep[1]:.2%} {'ok' if ok else 'FAIL'}; logits through "
+              f"the whole prefill: bf16 {rel_err(lk, lp):.2e}, f32 "
+              f"{l32:.2e} (not gated); {time.monotonic() - t0:.1f} s",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"prefill of {n} tokens: the kernel path "
+                                 "disagrees with the torch-ops path or the "
+                                 "plain versions")
+    return models[False], firsts
+
+
+def moe_phase(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS, capacity=4,
+              max_len=1024, layers=MOE_LAYERS):
+    """Phase 8 (a): qwen3-moe-30b-a3b at full width, cut to ``layers``
+    layers, on its use_pallas path behind the ported ServingEngine, with
+    weights drawn from a seeded generator on the device. Every prefill of
+    every layer runs flash attention (G = 8, D = 128); the MoE block is
+    torch ops, as the reference's is einsums outside any kernel. Returns
+    the launch counts of the served run and the serving-shape rows."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    from repro_torch.serving import ServingConfig
+    full = cfg.num_layers
+    cfg = dataclasses.replace(cfg, num_layers=layers, use_pallas=True)
+    model = build_model(cfg)
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev)
+    n_params = param_count_tree(params)
+    rng = np.random.default_rng(SEED + 4)
+    toks = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in prompts]
+    scfg = ServingConfig(capacity=capacity, max_len=max_len)
+    e = cfg.moe
+    print(f"  {cfg.name}: {layers} of {full} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim_}, {e.num_experts} experts top-"
+          f"{e.experts_per_token} of d_ff {e.d_ff}, vocab {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}, "
+          f"{n_params * 4 / 2 ** 30:.1f} GiB, drawn in "
+          f"{time.monotonic() - t0:.1f} s), activations {cfg.dtype}; "
+          f"ServingEngine(capacity={capacity}, max_len={max_len})",
+          flush=True)
+    serve(model, params, toks[-2:-1], scfg, 2)      # warm-up, not counted
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    reqs, decode_s, wall = serve(model, params, toks, scfg, new_tokens)
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+
+    # -- checks ---------------------------------------------------------------
+    check_served(cfg, dev, reqs, prompts, new_tokens, decode_s, wall)
+    ops_model, firsts = moe_gates(cfg, dev, params, prompts, toks)
+    served = [r.tokens[0] for r in reqs]
+    print(f"  ServingEngine first tokens equal to the kernel path's own "
+          f"prefill: {sum(a == b for a, b in zip(served, firsts))}/"
+          f"{len(reqs)} [all] {'ok' if served == firsts else 'FAIL'}",
+          flush=True)
+    if served != firsts:
+        raise AssertionError(f"the engine's first tokens {served} are not "
+                             f"the model's own prefill's {firsts}")
+    ops_reqs, _, _ = serve(ops_model, params, toks, scfg, new_tokens)
+    # the same served comparison with f32 activations, where the layerwise
+    # gate (a) flips no top-k set: the two paths' tokens part in f32 too,
+    # as the whole-prefill logits do (printed by moe_gates)
+    r32 = [serve(build_model(dataclasses.replace(
+        cfg, dtype=torch.float32, use_pallas=pal)), params, toks, scfg,
+        new_tokens)[0] for pal in (True, False)]
+    same = [sum(a == b for r, o in zip(*pair)
+                for a, b in zip(r.tokens, o.tokens))
+            for pair in ((reqs, ops_reqs), r32)]
+    print(f"  ServingEngine greedy tokens equal, kernel path vs torch-ops "
+          f"path: bf16 {same[0]}/{len(reqs) * new_tokens}, f32 {same[1]}/"
+          f"{len(reqs) * new_tokens} (printed, not gated)", flush=True)
+    del r32
+    # the model's own sensitivity: the f32 torch-ops path alone, its
+    # embedding table moved by at most one f32 ulp
+    m32 = build_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                          use_pallas=False))
+    x = torch.as_tensor(toks[0][None], dtype=torch.long, device=dev)
+    moved = {**params, "embed": params["embed"] * (1 + 2.0 ** -23)}
+    print(f"  the f32 torch-ops path alone, its embedding table moved by "
+          f"one ulp: a {prompts[0]}-token prefill's logits move by "
+          f"{rel_err(m32.prefill(moved, x)[0], m32.prefill(params, x)[0]):.2e}"
+          f" (printed, not gated)", flush=True)
+    del moved
+    with traced_as(moe_lib, "moe_block"):
+        where_the_time_goes(model, params, cfg, dev, toks[0], capacity,
+                            max_len, span="moe_block")
+    if dev.type == "cuda":
+        weight_cast_ms(params, cfg)
+    print("  flash attention at the served lengths (plain form, as "
+          "served):", flush=True)
+    cases = flash_serve_cases(cfg, dev, sorted(set(prompts), reverse=True),
+                              np.random.default_rng(SEED + 7),
+                              label="flash_moe")
+    rows = time_cases(cases, REPS, cfg.num_heads, plain_only=tuple(cases))
+
+    print(f"  launches on the MoE model path: {json.dumps(counts)}")
+    cuda_core_guard(counts, "MoE model path")
+    need = layers * len(prompts)
+    if counts["flash_plain"] != need:
+        raise AssertionError(f"flash_plain launched {counts['flash_plain']} "
+                             f"times on the MoE model path, not {need} (one "
+                             "a layer of each prefill)")
+    return counts, rows
+
+
+def whisper_greedy(model, params, embeds, toks, steps):
+    """``prefill`` of ``toks`` with the frame embeddings, then ``steps``
+    greedy ``decode_step``s with the cross K/V in the cache (the
+    reference's own API: its engine does not serve audio). Returns the
+    greedy tokens (B, steps + 1) and the prefill's logits."""
+    from repro_torch.models.transformer import pad_cache
+    S = toks.shape[1]
+    logits, cache = model.prefill(params, toks, encoder_embeds=embeds)
+    first = logits
+    cache = pad_cache(cache, S + steps)
+    out = [logits[:, -1].argmax(dim=-1)]
+    for i in range(steps):
+        logits, cache = model.decode_step(params, out[-1][:, None], cache,
+                                          S + i)
+        out.append(logits[:, -1].argmax(dim=-1))
+    return torch.stack(out, dim=1), first
+
+
+def row_errs(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Relative L2 error of each row (the last axis: one token's vector)."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, want.shape[-1])
+    return (g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+
+
+WHISPER_PARTS = ("encoder attention", "encoder MLP", "decoder attention",
+                 "decoder MLP")
+
+
+def whisper_sublayers(kern, ref, params, embeds, toks,
+                      kern_ctx=contextlib.nullcontext,
+                      ref_ctx=contextlib.nullcontext):
+    """Every kernel-bearing sub-block of whisper, ``kern`` (inside
+    ``kern_ctx()``) against ``ref`` (inside ``ref_ctx()``) from the same
+    input: each encoder layer's self-attention (flash attention) and MLP
+    (three matmuls), each decoder layer's self-attention and MLP, the MLP
+    fed ``ref``'s attention output (the decoder's, after the
+    cross-attention to ``ref``'s encoder output, which has no kernel).
+    Each next layer starts from ``ref``'s output. Returns, for each of
+    WHISPER_PARTS, the rows' relative errors (one row a token) over all
+    layers."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.transformer import _layers
+    errs = {k: [] for k in WHISPER_PARTS}
+    h = embeds.to(ref.cfg.dtype)
+    for lp in _layers(params["encoder"]["layers"], ref.cfg.encoder_layers):
+        with kern_ctx():
+            _, ak = kern._enc_attn(lp, h)
+        with ref_ctx():
+            x, ar = ref._enc_attn(lp, h)
+        with kern_ctx():
+            _, mk = kern._enc_mlp(lp, x)
+        with ref_ctx():
+            h, mr = ref._enc_mlp(lp, x)
+        errs["encoder attention"].append(row_errs(ak, ar))
+        errs["encoder MLP"].append(row_errs(mk, mr))
+    enc = rms_norm(h, params["encoder"]["norm"], ref.cfg.rms_eps)
+    h = ref.embed_tokens(params, toks)
+    for lp in _layers(params["layers"]["p0"], ref.cfg.num_layers):
+        with kern_ctx():
+            _, ak, _ = kern._mixer(0, lp, h, enc_out=enc)
+        with ref_ctx():
+            x, ar, _ = ref._mixer(0, lp, h, enc_out=enc)
+        with kern_ctx():
+            _, mk, _ = kern._ffn(0, lp, x)
+        with ref_ctx():
+            h, mr, _ = ref._ffn(0, lp, x)
+        errs["decoder attention"].append(row_errs(ak, ar))
+        errs["decoder MLP"].append(row_errs(mk, mr))
+    return {k: torch.cat(v) for k, v in errs.items()}
+
+
+def rows_line(errs, tol):
+    """Each part's median and largest row error; ok when every row of every
+    part is within ``tol``."""
+    ok = all(float(e.max()) <= tol for e in errs.values())
+    text = ", ".join(f"{k} {e.median().item():.1e} (max {e.max().item():.1e})"
+                     for k, e in errs.items())
+    return text, ok
+
+
+def whisper_phase(cfg, dev, batch=WHISPER_BATCH, prompt=WHISPER_PROMPT,
+                  steps=WHISPER_STEPS):
+    """Phase 8 (b): whisper-base whole on its use_pallas path, weights from
+    a seeded generator on the device, random frame embeddings (``batch`` x
+    frames x d_model) from a seed: the encoder (non-causal flash attention
+    at S = T = frames, the SwiGLU matmuls at M = batch x frames), a
+    ``prompt``-token decoder prefill and ``steps`` greedy decode steps.
+
+    The random init makes this model chaotic: its attention scores have a
+    standard deviation of some 64 (the init's fan-in of wq is its 8-head
+    axis), each softmax is a hard argmax over up to 1500 keys, and a
+    perturbation at the last bit moves the logits by O(1), in float64 as
+    in bf16 (``rehearse_phase8``). So nothing is compared end to end:
+    every kernel-bearing sub-block is held from the same input
+    (``whisper_sublayers``), every row (one token) of every part gated:
+    (a) in f32 against the torch-ops path (MODEL_TOL_F32), (b) in bf16
+    against the torch-ops path (WHISPER_TOL), (c) in bf16 against the
+    kernels' plain versions (PLAIN_TOL); and every logit finite, every
+    token in the vocabulary.
+    Printed: the encoder output, prefill logits and greedy tokens against
+    the torch-ops path's. Returns the launch counts of the counted run and
+    the kernel rows."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import kv_cache_specs
+    from repro_torch.device import synchronize
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    model = build_model(cfg)
+    params = model.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    F_, E = cfg.num_audio_frames, cfg.d_model
+    embeds = torch.from_numpy(rng.standard_normal(
+        (batch, F_, E), dtype=np.float32)).to(dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(batch, prompt)), device=dev)
+    print(f"  {cfg.name}: {cfg.encoder_layers} encoder + {cfg.num_layers} "
+          f"decoder layers, d_model {E}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+          f"{param_count_tree(params) / 1e6:.1f} M parameters "
+          f"({cfg.param_dtype}), activations {cfg.dtype}; {batch} x {F_} "
+          f"frames, a {prompt}-token prompt, {steps} decode steps",
+          flush=True)
+    whisper_greedy(model, params, embeds, toks, steps)   # warm-up
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    synchronize(dev)
+    t0 = time.monotonic()
+    got, lk = whisper_greedy(model, params, embeds, toks, steps)
+    synchronize(dev)
+    wall = time.monotonic() - t0
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+    print(f"  encode + prefill + {steps} greedy decode steps: "
+          f"{wall * 1e3:.1f} ms (host clock); tokens {got.tolist()}",
+          flush=True)
+
+    # -- checks ---------------------------------------------------------------
+    ops = build_model(dataclasses.replace(cfg, use_pallas=False))
+    f32 = [build_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                           use_pallas=pal))
+           for pal in (True, False)]
+    lines, ok = [], (bool(torch.isfinite(lk).all())
+                     and bool(((got >= 0) & (got < cfg.vocab_size)).all()))
+    for label, (kern, ref), ctx, tol in (
+            ("(a) f32 vs torch ops", f32, contextlib.nullcontext,
+             MODEL_TOL_F32),
+            ("(b) bf16 vs torch ops", (model, ops), contextlib.nullcontext,
+             WHISPER_TOL),
+            ("(c) bf16 vs plain versions", (model, model), plain_versions,
+             PLAIN_TOL)):
+        text, good = rows_line(whisper_sublayers(kern, ref, params, embeds,
+                                                 toks, ref_ctx=ctx), tol)
+        lines.append(f"{label} [every row <= {tol:g}]: {text} "
+                     f"{'ok' if good else 'FAIL'}")
+        ok = ok and good
+    print("  sub-blocks from the same input, median row error (largest):",
+          flush=True)
+    for line in lines:
+        print(f"    {line}", flush=True)
+    want, lo = whisper_greedy(ops, params, embeds, toks, steps)
+    print(f"  end to end against the torch-ops path (not gated: chaotic): "
+          f"bf16 encoder output "
+          f"{rel_err(model.encode(params, embeds), ops.encode(params, embeds)):.2e}"
+          f", prefill logits {rel_err(lk, lo):.2e}, greedy tokens equal: "
+          f"{torch.equal(got, want)} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("whisper: a sub-block on the kernel path "
+                             "disagrees with the torch-ops path or the plain "
+                             "versions, or the output is not finite")
+    x = toks[:, -1:]
+    cache = {k: torch.zeros(shape, dtype=dtype, device=dev) for k, (
+        shape, dtype) in kv_cache_specs(cfg, batch, prompt + steps).items()}
+    profile_once(f"encoder, {batch} x {F_} frames",
+                 lambda: model.encode(params, embeds), dev)
+    profile_once(f"decode step, {batch} sequences",
+                 lambda: model.decode_step(params, x, cache, prompt), dev)
+    print("  the kernels at the encoder's, the decoder prefill's and the "
+          "decode step's shapes (plain form, as run):", flush=True)
+    rng = np.random.default_rng(SEED + 9)
+    cases = {**mm_serve_cases(cfg, dev, (batch * F_, batch * prompt, batch),
+                              rng),
+             **flash_serve_cases(cfg, dev, (F_,), rng, batch=batch,
+                                 causal=False, label="flash_enc"),
+             **flash_serve_cases(cfg, dev, (prompt,), rng, batch=batch,
+                                 label="flash_dec")}
+    rows = time_cases(cases, REPS, cfg.num_heads, plain_only=tuple(cases))
+
+    print(f"  launches on the audio model path: {json.dumps(counts)}")
+    cuda_core_guard(counts, "audio model path")
+    L, EL = cfg.num_layers, cfg.encoder_layers
+    need = {"flash_plain": EL + L,
+            "matmul_plain": 3 * (EL + L + L * steps)}
+    if {k: counts[k] for k in need} != need:
+        raise AssertionError(f"the audio path's launches "
+                             f"{ {k: counts[k] for k in need} } are not the "
+                             f"encoder's, the prefill's and the decode "
+                             f"steps' {need}")
+    return counts, rows
+
+
+def rehearse_phase8():
+    """CPU rehearsal of phase 8's bf16 gates at full width, the kernels'
+    roundings emulated (``emulated_tensor_cores``): (a) qwen3-moe-30b-a3b
+    cut to 2 layers and a 1024-token vocabulary, each of PROMPTS'
+    attention against the torch-ops path (gate b) and against the plain
+    versions (gate c) and the flipped top-k share; (b) whisper-base
+    whole: each kernel-bearing sub-block's row errors against the
+    torch-ops path and the plain versions (``whisper_sublayers``), and how
+    far a 1e-12 move of the frame embeddings carries in float64. Prints
+    one line per case.
+
+        python3 -c 'import chip_smoke as c; c.rehearse_phase8()'
+    """
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import build_model
+    dev = torch.device("cpu")
+    layers, vocab, dtype = 2, 1024, torch.bfloat16
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              num_layers=layers, vocab_size=vocab,
+                              dtype=dtype)
+    kern = build_model(dataclasses.replace(cfg, use_pallas=True))
+    ops = build_model(cfg)
+    params = kern.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 4)
+    for n in PROMPTS:
+        x = torch.as_tensor(rng.integers(0, vocab, size=(1, n)))
+        eb = moe_layerwise(kern, ops, params, x, layers,
+                           kern_ctx=emulated_tensor_cores)
+        ec = moe_layerwise(kern, kern, params, x, layers,
+                           kern_ctx=emulated_tensor_cores,
+                           ref_ctx=plain_versions)
+        print(f"qwen3-moe prefill {n} tokens ({dtype}): (b) attention vs "
+              f"torch ops {eb[0]:.3e}, flipped sets {eb[1]:.2%}; (c) "
+              f"attention vs plain versions {ec[0]:.3e}, flipped sets "
+              f"{ec[1]:.2%}", flush=True)
+    del params, kern, ops
+    gc.collect()
+    wcfg = dataclasses.replace(get_config("whisper-base"), dtype=dtype)
+    kern = build_model(dataclasses.replace(wcfg, use_pallas=True))
+    ops = build_model(wcfg)
+    params = kern.init(SEED, device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (WHISPER_BATCH, wcfg.num_audio_frames, wcfg.d_model),
+        dtype=np.float32))
+    toks = torch.as_tensor(rng.integers(0, wcfg.vocab_size,
+                                        size=(WHISPER_BATCH,
+                                              WHISPER_PROMPT)))
+    for label, ref, ctx, tol in (
+            ("(b) vs torch ops", ops, contextlib.nullcontext, WHISPER_TOL),
+            ("(c) vs plain versions", kern, plain_versions, PLAIN_TOL)):
+        errs = whisper_sublayers(kern, ref, params, embeds, toks,
+                                 kern_ctx=emulated_tensor_cores,
+                                 ref_ctx=ctx)
+        text = ", ".join(
+            f"{k} median {e.median().item():.2e}, 99th percentile "
+            f"{e.quantile(0.99).item():.2e}, max {e.max().item():.2e} "
+            f"[<= {tol:g}]"
+            for k, e in errs.items())
+        print(f"whisper ({dtype}) {label}: {text}", flush=True)
+    # the model's sensitivity: float64, the torch-ops path, the frame
+    # embeddings moved by 1e-12
+    m64 = build_model(dataclasses.replace(wcfg, dtype=torch.float64))
+    from repro_torch.tree import tree_map
+    p64 = tree_map(lambda a: a.double(), params)
+    e64 = embeds.double()
+    noise = torch.from_numpy(np.random.default_rng(SEED + 10)
+                             .standard_normal(e64.shape)) * 1e-12
+    l0, _ = m64.prefill(p64, toks, encoder_embeds=e64)
+    l1, _ = m64.prefill(p64, toks, encoder_embeds=e64 + noise)
+    enc = [m64.encode(p64, e) for e in (e64, e64 + noise)]
+    print(f"whisper (float64): frame embeddings moved by 1e-12 move the "
+          f"encoder output by {rel_err(enc[1], enc[0]):.2e} and the prefill "
+          f"logits by {rel_err(l1, l0):.2e} (relative L2)", flush=True)
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -1655,6 +2208,31 @@ def main() -> int:
     print("[7] training on the card: gradients, the full model, restart, "
           "co-location with the served model", flush=True)
     c_counts = training_phase(mcfg, dev)
+    # phase 8 holds 58 GiB of parameters: free what phases 6 and 7 left
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[8] the MoE and audio model paths: qwen3-moe-30b-a3b behind the "
+          "ServingEngine, whisper-base encoded and decoded", flush=True)
+    t8 = time.monotonic()
+    q_counts, q_rows = moe_phase(get_config("qwen3-moe-30b-a3b"), dev)
+    print("  MoE serving shapes: " + json.dumps(
+        {label: r for (label, _), r in q_rows.items()}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch in ("qwen3-moe-30b-a3b", "jamba-1.5-large-398b"):
+        out = serve_driver(arch, requests=16)
+        print(f"  repro_torch.launch.serve.serve({arch!r}, requests=16) "
+              f"(reduced width): {json.dumps(out)}", flush=True)
+        if out["requests"] != 16 or out["shed"] or out["device"] != "cuda:0":
+            raise AssertionError(f"the serving driver did not answer every "
+                                 f"{arch} request on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    w_counts, w_rows = whisper_phase(get_config("whisper-base"), dev)
+    print("  whisper shapes: " + json.dumps(
+        {label: r for (label, _), r in w_rows.items()}))
+    print(f"  phase 8 in {time.monotonic() - t8:.1f} s", flush=True)
 
     summary = []
     for fam, label, shape, route in lines:
@@ -1664,7 +2242,9 @@ def main() -> int:
             by_path = {"server": counts[name],
                        "mamba2_serving": m_counts[name],
                        "qwen_serving": d_counts[name],
-                       "colocated": c_counts[name]}
+                       "colocated": c_counts[name],
+                       "moe_serving": q_counts[name],
+                       "whisper": w_counts[name]}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,

@@ -15,7 +15,9 @@ blocks, queued requests blow their per-request timeout); ``--failover``
 arms the client-side failover stack — timeout retries with deterministic
 backoff, hedged requests, brownout degradation — so the outage degrades
 latency instead of losing requests. Runs on the card unless ``--device
-cpu``.
+cpu``. Every family but audio is served; the audio family's engine
+refuses it (its decoder needs frame embeddings with each request, which
+the reference's engine does not pass either).
 """
 from __future__ import annotations
 

@@ -3,10 +3,11 @@
 
 ``make_optimizer`` picks AdamW or Adafactor by ``cfg.optimizer``;
 ``make_train_step`` returns ``train_step(params, opt_state, batch) ->
-(params, opt_state, {"loss", "grad_norm"})``: gradients of ``loss_fn`` by
-``torch.autograd.grad`` over the parameter leaves, microbatches summed and
-divided by their count, the schedule read at ``opt_state.step`` before the
-update. On one card the reference's shardings, mesh and abstract inputs
+(params, opt_state, {"loss", "grad_norm"})``: gradients of ``loss_fn`` (the
+cross-entropy plus the MoE auxiliary loss; a batch's ``encoder_embeds``
+go to the audio family's encoder) by ``torch.autograd.grad`` over the
+parameter leaves, microbatches summed and divided by their count, the
+schedule read at ``opt_state.step`` before the update. On one card the reference's shardings, mesh and abstract inputs
 drop out (they come with the port's ``torch.distributed`` layer, ROADMAP
 Queue 1 item 8); the serving steps, which only the reference's dry run
 uses, are not ported.

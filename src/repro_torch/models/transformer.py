@@ -1,22 +1,27 @@
-"""Decoder model (the port of ``repro.models.transformer``).
+"""Unified decoder(-encoder) model (the port of
+``repro.models.transformer``).
 
 One implementation parameterized by ``ModelConfig``:
-  dense                  : homogeneous attention + SwiGLU stack
-  vlm (qwen2-vl)         : the dense stack with M-RoPE positions threaded
-                           through attention
+  dense / moe            : homogeneous attention stack, SwiGLU or MoE FFN
   ssm (mamba2)           : mixer-only blocks
+  hybrid (jamba)         : periods of ``attn_every`` layers, mamba2 and
+                           attention mixers by position, each with an FFN
+                           (MoE every ``moe.every`` layers)
+  audio (whisper)        : encoder stack (non-causal) + decoder with
+                           cross-attention to the encoder's output
+  vlm (qwen2-vl)         : M-RoPE positions threaded through attention
 
 The reference runs the layer stack as one ``lax.scan`` over periods of
 stacked parameters; the port runs it as a Python loop over the same stacked
 parameters, in the reference's layout (``layers/p{p}/attn/wq`` keeps its
 leading layer axis), so that a JAX parameter tree carried across through
-numpy runs unchanged. The moe, hybrid and audio families need the MoE block
-and the encoder, which the port does not have yet; building one raises.
+numpy runs unchanged.
 
 Training (``forward_train``, ``loss_fn``) differentiates through torch ops
 with autograd; with ``cfg.remat`` each period of the stack is recomputed in
 the backward pass (``torch.utils.checkpoint``), as the reference wraps its
-period step in ``jax.checkpoint``.
+period step in ``jax.checkpoint``. The MoE auxiliary loss is summed over
+the layers on every path, the checkpointed one included.
 """
 from __future__ import annotations
 
@@ -29,14 +34,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import P, init_from_specs, stacked
 from repro_torch.models.layers import attention_block, rms_norm, swiglu_mlp
 
-FAMILIES = ("dense", "vlm", "ssm")
-# what each family the port cannot build yet is waiting for
-MISSING = {"moe": "the MoE block (models/moe.py)",
-           "hybrid": "the MoE block (models/moe.py)",
-           "audio": "the encoder stack and cross-attention in the stack"}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _lcm(a: int, b: int) -> int:
@@ -103,10 +105,7 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig):
         if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: the port runs the {', '.join(FAMILIES)} "
-                f"families; the {cfg.family} family needs "
-                f"{MISSING[cfg.family]} (ROADMAP Queue 1 item 4)")
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
         self.cfg = cfg
         self.period = layer_period(cfg)
         assert cfg.num_layers % self.period == 0, (
@@ -117,8 +116,10 @@ class TransformerLM:
         self.mixer_kind = [
             "attn" if cfg.is_attention_layer(p) else "ssm"
             for p in range(self.period)]
-        self.ffn_kind = [None if cfg.family == "ssm" else "dense"
-                         for _ in range(self.period)]
+        self.ffn_kind = [
+            None if cfg.family == "ssm"
+            else ("moe" if cfg.is_moe_layer(p) else "dense")
+            for p in range(self.period)]
 
     # -- specs ---------------------------------------------------------------
 
@@ -127,11 +128,15 @@ class TransformerLM:
         d: Dict[str, Any] = {"ln1": P((cfg.d_model,), (None,), init="ones")}
         if self.mixer_kind[p] == "attn":
             d["attn"] = _attn_specs(cfg)
+            if cfg.encoder_layers:
+                d["ln_x"] = P((cfg.d_model,), (None,), init="ones")
+                d["xattn"] = _attn_specs(cfg)
         else:
             d["ssm"] = m2.mamba2_specs(cfg)
         if self.ffn_kind[p] is not None:
             d["ln2"] = P((cfg.d_model,), (None,), init="ones")
-            d["ffn"] = _mlp_specs(cfg)
+            d["ffn"] = (moe_lib.moe_specs(cfg) if self.ffn_kind[p] == "moe"
+                        else _mlp_specs(cfg))
         return d
 
     def specs(self) -> Dict[str, Any]:
@@ -146,6 +151,17 @@ class TransformerLM:
         }
         if not cfg.tie_embeddings:
             s["lm_head"] = P((E, V), ("embed", "vocab"))
+        if cfg.encoder_layers:
+            enc_layer = {
+                "ln1": P((E,), (None,), init="ones"),
+                "attn": _attn_specs(cfg),
+                "ln2": P((E,), (None,), init="ones"),
+                "ffn": _mlp_specs(cfg),
+            }
+            s["encoder"] = {
+                "layers": stacked(cfg.encoder_layers, enc_layer),
+                "norm": P((E,), (None,), init="ones"),
+            }
         return s
 
     def init(self, seed: int = 0,
@@ -156,14 +172,50 @@ class TransformerLM:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         return init_from_specs(self.specs(), gen, self.cfg.param_dtype)
 
+    # -- encoder (audio) ------------------------------------------------------
+
+    def encode(self, params, embeds: torch.Tensor) -> torch.Tensor:
+        """embeds: (B, F, E) precomputed frame embeddings (stub frontend).
+        Each encoder layer: non-causal self-attention, then the SwiGLU MLP,
+        each behind its RMSNorm and residual; then the final norm."""
+        cfg = self.cfg
+        if embeds is None:
+            raise ValueError(f"{cfg.name}: the {cfg.family} family needs "
+                             "encoder_embeds (B, frames, d_model)")
+        x = embeds.to(cfg.dtype)
+        for lp in _layers(params["encoder"]["layers"], cfg.encoder_layers):
+            x, _ = self._enc_attn(lp, x)
+            x, _ = self._enc_mlp(lp, x)
+        return rms_norm(x, params["encoder"]["norm"], cfg.rms_eps)
+
+    def _enc_attn(self, lp, x):
+        """The encoder layer's first half on its parameters ``lp``:
+        RMSNorm, non-causal self-attention, residual. Returns (x, attention
+        output)."""
+        h, _ = attention_block(lp["attn"],
+                               rms_norm(x, lp["ln1"], self.cfg.rms_eps),
+                               self.cfg, causal=False)
+        return x + h, h
+
+    def _enc_mlp(self, lp, x):
+        """The encoder layer's second half: RMSNorm, SwiGLU MLP, residual.
+        Returns (x, MLP output)."""
+        m = swiglu_mlp(lp["ffn"], rms_norm(x, lp["ln2"], self.cfg.rms_eps),
+                       self.cfg)
+        return x + m, m
+
     # -- decoder stack ---------------------------------------------------------
 
-    def _sublayer(self, p: int, lp, x, *, positions=None, cache=None,
-                  cache_index=None, collect_cache=False):
-        """The layer at period position ``p`` on its parameters ``lp``;
-        ``cache`` is its own entry in decode, (k, v) or (conv_state,
-        ssm_state). Returns (output, mixer output, MLP output or None, the
-        layer's new cache entries or None)."""
+    def _mixer(self, p: int, lp, x, *, positions=None, cache=None,
+               cache_index=None, collect_cache=False, enc_out=None,
+               cross=None):
+        """The mixer half of the layer at period position ``p``: RMSNorm,
+        attention or mamba2, residual, and for the audio family the
+        cross-attention to the encoder (its K/V projected from ``enc_out``,
+        or ``cross`` = (cross_k, cross_v) from the cache in decode).
+        ``cache`` is the layer's own entry in decode, (k, v) or
+        (conv_state, ssm_state). Returns (x, mixer output, the layer's new
+        cache entries or None)."""
         cfg = self.cfg
         decode = cache is not None
         h = rms_norm(x, lp["ln1"], cfg.rms_eps)
@@ -174,59 +226,106 @@ class TransformerLM:
             if decode or collect_cache:
                 new = dict(zip(("k", "v"), ex["cache"] if decode
                                else ex["kv"]))
+            x = x + h
+            if cfg.encoder_layers:
+                hx = rms_norm(x, lp["ln_x"], cfg.rms_eps)
+                if cross is None:
+                    dt = x.dtype
+                    cross = tuple(
+                        torch.einsum("bfe,ehd->bfhd", enc_out,
+                                     lp["xattn"][w].to(dt))
+                        for w in ("wk", "wv"))
+                    if collect_cache:
+                        new.update(zip(("cross_k", "cross_v"), cross))
+                hx, _ = attention_block(lp["xattn"], hx, cfg,
+                                        encoder_kv=cross)
+                x = x + hx
         else:  # ssm mixer
             h, st = m2.mamba2_block(lp["ssm"], h, cfg, state=cache,
                                     want_state=collect_cache)
             if st is not None and (decode or collect_cache):
                 new = dict(zip(("conv_state", "ssm_state"), st))
-        x = x + h
-        m = None
-        if self.ffn_kind[p] is not None:
-            m = swiglu_mlp(lp["ffn"], rms_norm(x, lp["ln2"], cfg.rms_eps),
-                           cfg)
-            x = x + m
-        return x, h, m, new
+            x = x + h
+        return x, h, new
+
+    def _ffn(self, p: int, lp, x):
+        """The FFN half of the layer at period position ``p``: RMSNorm,
+        SwiGLU MLP or MoE block, residual. Returns (x, FFN output or None,
+        the MoE auxiliary loss or None)."""
+        kind = self.ffn_kind[p]
+        if kind is None:
+            return x, None, None
+        h = rms_norm(x, lp["ln2"], self.cfg.rms_eps)
+        if kind == "moe":
+            m, aux = moe_lib.moe_block(lp["ffn"], h, self.cfg)
+        else:
+            m, aux = swiglu_mlp(lp["ffn"], h, self.cfg), None
+        return x + m, m, aux
+
+    def _sublayer(self, p: int, lp, x, **kw):
+        """The layer at period position ``p`` on its parameters ``lp``
+        (``_mixer``'s keywords). Returns (output, mixer output, FFN output
+        or None, the layer's new cache entries or None, the MoE auxiliary
+        loss or None)."""
+        x, h, new = self._mixer(p, lp, x, **kw)
+        x, m, aux = self._ffn(p, lp, x)
+        return x, h, m, new, aux
 
     def _stack(self, params, x, *, positions=None, cache=None,
-               cache_index=None, collect_cache=False, remat=False):
+               cache_index=None, enc_out=None, collect_cache=False,
+               remat=False):
         """Run the layer stack. Returns (x, aux_loss, new_cache | None);
         with ``cache`` (the tree of ``kv_cache_specs``, leading dim n_attn /
         n_ssm) it runs decode (S == 1). With ``remat`` each period is
         recomputed in the backward pass instead of keeping its
-        activations."""
+        activations; it returns the period's auxiliary loss beside x, so
+        that the loss is summed through the checkpoint too."""
         decode = cache is not None
         ys: Dict[str, list] = {}
         n = {"attn": 0, "ssm": 0}      # attention / ssm layers so far
         keys = {"attn": ("k", "v"), "ssm": ("conv_state", "ssm_state")}
         layers = [_layers(params["layers"][f"p{p}"], self.n_periods)
                   for p in range(self.period)]
-
-        def period_step(x, i):
-            for p in range(self.period):
-                x = self._sublayer(p, layers[p][i], x,
-                                   positions=positions)[0]
-            return x
-
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def period_step(x, enc_out, i):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            for p in range(self.period):
+                x, _, _, _, al = self._sublayer(p, layers[p][i], x,
+                                                positions=positions,
+                                                enc_out=enc_out)
+                if al is not None:
+                    aux = aux + al
+            return x, aux
+
         if not (decode or collect_cache):
             for i in range(self.n_periods):
-                x = (checkpoint(period_step, x, i, use_reentrant=False)
-                     if remat else period_step(x, i))
+                x, al = (checkpoint(period_step, x, enc_out, i,
+                                    use_reentrant=False)
+                         if remat else period_step(x, enc_out, i))
+                aux = aux + al
             return x, aux, None
         for i in range(self.n_periods):
             for p in range(self.period):
                 kind = self.mixer_kind[p]
-                entry = (tuple(cache[k][n[kind]] for k in keys[kind])
+                j = n[kind]
+                entry = (tuple(cache[k][j] for k in keys[kind])
                          if decode else None)
-                x, _, _, new = self._sublayer(
+                cross = ((cache["cross_k"][j], cache["cross_v"][j])
+                         if decode and "cross_k" in cache
+                         and kind == "attn" else None)
+                x, _, _, new, al = self._sublayer(
                     p, layers[p][i], x,
                     positions=positions, cache=entry,
-                    cache_index=cache_index, collect_cache=collect_cache)
+                    cache_index=cache_index, collect_cache=collect_cache,
+                    enc_out=enc_out, cross=cross)
+                if al is not None:
+                    aux = aux + al
                 for k, v in (new or {}).items():
                     ys.setdefault(k, []).append(v)
                 n[kind] += 1
         new_cache = {k: torch.stack(v) for k, v in ys.items()}
-        if decode:  # static entries pass through
+        if decode:  # static entries (the cross-attention K/V) pass through
             for k in cache:
                 new_cache.setdefault(k, cache[k])
         return x, aux, new_cache
@@ -243,19 +342,25 @@ class TransformerLM:
                 else params["lm_head"])
         return x @ head.to(x.dtype)
 
-    def forward_train(self, params, tokens, *, positions=None):
+    def forward_train(self, params, tokens, *, positions=None,
+                      encoder_embeds=None):
         """tokens (B, S) -> (logits (B,S,V), aux_loss)."""
         x = self.embed_tokens(params, tokens)
+        enc_out = (self.encode(params, encoder_embeds)
+                   if self.cfg.encoder_layers else None)
         x, aux, _ = self._stack(params, x, positions=positions,
-                                remat=self.cfg.remat)
+                                enc_out=enc_out, remat=self.cfg.remat)
         return self.logits(params, x), aux
 
     @torch.no_grad()
-    def prefill(self, params, tokens, *, positions=None):
+    def prefill(self, params, tokens, *, positions=None,
+                encoder_embeds=None):
         """Full-prompt forward; returns (last-token logits, populated cache)."""
         x = self.embed_tokens(params, tokens)
+        enc_out = (self.encode(params, encoder_embeds)
+                   if self.cfg.encoder_layers else None)
         x, _, cache = self._stack(params, x, positions=positions,
-                                  collect_cache=True)
+                                  enc_out=enc_out, collect_cache=True)
         return self.logits(params, x[:, -1:, :]), cache
 
     @torch.no_grad()
@@ -285,8 +390,9 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor
 
 
 def loss_fn(model: TransformerLM, params, batch: Dict[str, torch.Tensor]):
-    logits, aux = model.forward_train(params, batch["tokens"],
-                                      positions=batch.get("positions"))
+    logits, aux = model.forward_train(
+        params, batch["tokens"], positions=batch.get("positions"),
+        encoder_embeds=batch.get("encoder_embeds"))
     ce = cross_entropy(logits, batch["targets"])
     return ce + aux, {"ce": ce, "aux": aux}
 

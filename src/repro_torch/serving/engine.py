@@ -177,6 +177,16 @@ class ServingEngine:
                  retry: Optional[RetryPolicy] = None,
                  hedge: Optional[HedgePolicy] = None,
                  brownout: Optional[BrownoutPolicy] = None):
+        if model.cfg.encoder_layers:
+            # the reference's engine prefills token prompts alone and fails
+            # in the encoder for want of its frame embeddings
+            raise NotImplementedError(
+                f"{model.cfg.name}: the serving engine prefills token "
+                "prompts alone; the audio family's decoder needs the "
+                "encoder's frame embeddings with each request, which "
+                "neither this engine nor the reference's takes (call "
+                "TransformerLM.prefill with encoder_embeds, then "
+                "decode_step)")
         self.model = model
         self.params = params
         self.scfg = scfg

@@ -3,7 +3,11 @@
 ``params_from_jax`` takes the JAX model's parameter tree after
 ``jax.tree.map(np.asarray, params)`` — nested dicts of numpy arrays — and
 returns the same tree of tensors: same keys, same layout (for example
-``layers/p0/ffn/wg`` keeps its stacked ``(n_periods, E, F)`` shape).
+``layers/p0/ffn/wg`` keeps its stacked ``(n_periods, E, F)`` shape), for
+every family: the MoE experts (``ffn/wi`` as ``(n_periods, experts, E,
+F)``), the hybrid periods (``layers/p0`` .. ``p7``, mamba2 and attention
+positions) and the audio encoder (``encoder/layers``, ``layers/p0/xattn``),
+leaf for leaf in ``jax.tree.flatten``'s order (``tree.py``).
 ``opt_state_from_jax`` does the same for a JAX ``OptState`` or ``AfState``,
 whose NamedTuples become the port's of the same name.
 """

@@ -1,6 +1,7 @@
 """chip_smoke.py's phases rehearsed on the CPU at a tiny width: the kernel
 wrappers take their plain versions there, so every comparison passes
 exactly and the launch-count guards find no kernel launched."""
+import re
 import sys
 from pathlib import Path
 
@@ -207,3 +208,167 @@ def test_colocation_gate_on_cpu_at_reduced_width(capsys):
     assert "HP tokens equal in 4/4 requests" in out
     assert "5 BE quanta between them" in out and "ok" in out
     assert "HP co-located: TTFT p50" in out
+
+
+def test_moe_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 8 (a) at reduced qwen3-moe width, cut to 2 layers: every
+    request answered, the three gates passed for every prompt (the prime
+    37 among them: bq = 1, one layer against the plain versions), flash
+    held against its plain version at each served length, and the
+    launch-count guard firing because the plain versions launch
+    nothing."""
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    prompts = (64, 40, 37, 20)
+    with pytest.raises(AssertionError, match="flash_plain launched 0 times"):
+        cs.moe_phase(cfg, torch.device("cpu"), prompts=prompts,
+                     new_tokens=3, capacity=2, max_len=80, layers=2)
+    out = capsys.readouterr().out
+    gated = [ln for ln in out.splitlines() if "(b) bf16 layer by layer" in ln]
+    assert len(gated) == len(prompts)
+    assert all(ln.endswith(" s") and " ok; " in ln
+               and "(a) f32 layer by layer" in ln for ln in gated), gated
+    assert "2 of 2 layers" in out
+    assert all("(c) bf16 kernels vs plain versions, 2 layers" in ln
+               for ln in gated)
+    # at full width the prime length takes one layer against the plain
+    # versions (bq = 1)
+    full = get_config("qwen3-moe-30b-a3b")
+    assert [cs.flash_bq(full, S) for S in cs.PROMPTS] == [256, 150, 1, 100,
+                                                          64, 256]
+    for S in prompts:
+        assert f"flash_moe_s{S} plain: max_abs=0.000e+00" in out, S
+    assert ("ServingEngine first tokens equal to the kernel path's own "
+            "prefill: 4/4 [all] ok") in out
+    assert all("logits through the whole prefill: bf16 " in ln
+               for ln in gated)
+    assert ("the f32 torch-ops path alone, its embedding table moved by one "
+            "ulp: a 64-token prefill's logits move by ") in out
+    assert re.search(r"ServingEngine greedy tokens equal, kernel path vs "
+                     r"torch-ops path: bf16 \d+/12, f32 \d+/12 \(printed, "
+                     r"not gated\)", out)
+
+
+def test_moe_phase_fails_when_engine_first_tokens_differ(monkeypatch):
+    """Phase 8 (a)'s first-token gate: an engine whose first tokens are
+    not the kernel path's own prefill's fails the phase."""
+    cfg = get_config("qwen3-moe-30b-a3b").reduced()
+    gates = cs.moe_gates
+
+    def shifted(*a):
+        ops, firsts = gates(*a)
+        return ops, [(t + 1) % cfg.vocab_size for t in firsts]
+
+    monkeypatch.setattr(cs, "moe_gates", shifted)
+    with pytest.raises(AssertionError, match="engine's first tokens"):
+        cs.moe_phase(cfg, torch.device("cpu"), prompts=(40, 20),
+                     new_tokens=2, capacity=2, max_len=48, layers=2)
+
+
+def test_whisper_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 8 (b) at reduced whisper width: the sub-block gates passed
+    on every row, the kernels held against their plain versions at the
+    encoder's, the decoder prefill's and the decode step's shapes, and the
+    launch-count guard firing (the plain versions launch nothing)."""
+    cfg = get_config("whisper-base").reduced()
+    with pytest.raises(AssertionError, match="audio path's launches") as e:
+        cs.whisper_phase(cfg, torch.device("cpu"), batch=2, prompt=6,
+                         steps=3)
+    # 2 encoder and 2 decoder layers, 3 decode steps
+    assert "{'flash_plain': 4, 'matmul_plain': 30}" in str(e.value)
+    out = capsys.readouterr().out
+    for gate in ("(a) f32 vs torch ops", "(b) bf16 vs torch ops",
+                 "(c) bf16 vs plain versions"):
+        line = next(ln for ln in out.splitlines() if gate in ln)
+        assert line.count("(max ") == 4 and line.endswith(" ok"), line
+    assert "greedy tokens equal:" in out and " ok\n" in out
+    F_ = 2 * cfg.num_audio_frames
+    for label in (f"mm_serve_up_m{F_}", f"mm_serve_down_m{F_}",
+                  "mm_serve_up_m12", "mm_serve_down_m12",
+                  "mm_serve_up_m2", "mm_serve_down_m2",
+                  f"flash_enc_s{cfg.num_audio_frames}", "flash_dec_s6"):
+        assert f"{label} plain: max_abs=0.000e+00" in out, label
+
+
+def test_moe_layerwise_gates():
+    """The attention sub-blocks agree within the gate's tolerance; each
+    router fed its own side's input may flip top-k sets (a share in
+    [0, 1]); a broken flash kernel fails the attention comparison."""
+    import dataclasses
+
+    from repro_torch.models.transformer import build_model
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b").reduced(),
+                              dtype=torch.bfloat16)
+    kern = build_model(dataclasses.replace(cfg, use_pallas=True))
+    ops = build_model(cfg)
+    params = kern.init(0, device="cpu")
+    x = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 37)))
+    attn, flips = cs.moe_layerwise(kern, ops, params, x, 2,
+                                   kern_ctx=cs.emulated_tensor_cores)
+    assert attn < cs.MOE_ATTN_TOL
+    assert 0.0 <= flips <= 1.0
+
+    def zeros(desc, args, outs):
+        outs[0].zero_()
+
+    attn, flips = cs.moe_layerwise(kern, ops, params, x, 1,
+                                   kern_ctx=lambda: cs.kernels_as(
+                                       flash=zeros))
+    assert attn > cs.MOE_ATTN_TOL and flips > 0.0
+
+
+def test_whisper_row_gate_holds_every_row():
+    """One token past the tolerance among many fails the gate; a broken
+    matmul kernel puts every MLP row past the tolerance."""
+    import dataclasses
+
+    from repro_torch.models.transformer import build_model
+    want = torch.ones(200, 8)
+    got = want.clone()
+    got[3] = -1.0
+    e = cs.row_errs(got, want)
+    assert e.shape == (200,) and e[3] == 2.0 and (e[:3] == 0).all()
+    text, ok = cs.rows_line({"part": e}, 1e-2)
+    assert not ok and text == "part 0.0e+00 (max 2.0e+00)"
+    got[3] = 1.001
+    assert cs.rows_line({"part": cs.row_errs(got, want)}, 1e-2)[1]
+
+    cfg = dataclasses.replace(get_config("whisper-base").reduced(),
+                              dtype=torch.float32)
+    kern = build_model(dataclasses.replace(cfg, use_pallas=True))
+    params = kern.init(0, device="cpu")
+    rng = np.random.default_rng(1)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (2, cfg.num_audio_frames, cfg.d_model), dtype=np.float32))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 5)))
+
+    def doubled(desc, args, outs):
+        a, b = args
+        outs[0].copy_(2 * (a.float() @ b.float()))
+
+    errs = cs.whisper_sublayers(kern, build_model(cfg), params, embeds, toks,
+                                kern_ctx=lambda: cs.kernels_as(
+                                    matmul=doubled))
+    assert set(errs) == set(cs.WHISPER_PARTS)
+    assert (errs["encoder MLP"] > 0.5).all()
+    assert (errs["decoder MLP"] > 0.5).all()
+    assert float(errs["encoder attention"].max()) < 1e-5
+
+
+def test_traced_as_ranges_and_restores():
+    """Calls of the wrapped function run inside a profiler range of its
+    name, with the function's own operators beneath it; the function is
+    restored after the block."""
+    import types
+
+    from torch.profiler import ProfilerActivity, profile
+    owner = types.SimpleNamespace(step=lambda x: x + 1)
+    fn = owner.step
+    with cs.traced_as(owner, "step"):
+        assert owner.step is not fn
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = owner.step(torch.ones(3))
+    assert owner.step is fn and torch.equal(out, torch.full((3,), 2.0))
+    ranges = [e for e in prof.events() if e.name == "step"]
+    assert len(ranges) == 1
+    assert any(c.name == "aten::add" for c in ranges[0].cpu_children)

@@ -24,7 +24,7 @@ assert "repro_torch.kernels.flash_attention" in names
 assert "repro_torch.kernels.mamba2_scan" in names
 assert "repro_torch.models.mamba2" in names
 assert "repro_torch.serving.engine" in names
-for name in ("models.layers", "launch.serve", "core.traffic", "core.metrics",
+for name in ("models.layers", "models.moe", "launch.serve", "core.traffic", "core.metrics",
              "tree", "optim.adamw", "optim.adafactor", "optim.schedule",
              "data.pipeline", "checkpoint.manager",
              "distributed.fault_tolerance", "launch.steps", "launch.train"):

@@ -81,11 +81,47 @@ def test_serve_chaos_matches_reference_counts(monkeypatch):
     assert math.isnan(got["p99_ms"])
 
 
-def test_colocate_train_raises_naming_roadmap():
-    """Co-located training runs on the families the port builds; on one it
-    does not build yet (moe) it raises and names the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        tserve.serve("qwen3-moe-30b-a3b", colocate_train=True, device="cpu")
+def test_serve_moe_matches_reference_counts():
+    kw = dict(requests=4, max_new_tokens=3)
+    want = jserve.serve("qwen3-moe-30b-a3b", **kw)
+    got = tserve.serve("qwen3-moe-30b-a3b", device="cpu", **kw)
+    assert _counts(got) == _counts(want) == {
+        "arch": "qwen3-moe-30b-a3b", "requests": 4, "shed": 0,
+        "retries": 0, "be_quanta": 0}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_colocate_train_moe_answers_all(arch, monkeypatch):
+    """The best-effort trainer of a MoE model (its aux loss in the loss)
+    beside the served MoE model, and of the hybrid family (mamba2 and
+    attention mixers, MoE every other layer): every request answered,
+    idle quanta taken, every BE loss finite."""
+    import torch
+    made = []
+
+    class Recorded(tserve.BestEffortTrainer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setattr(tserve, "BestEffortTrainer", Recorded)
+    out = tserve.serve(arch, requests=6, colocate_train=True, device="cpu")
+    assert out["requests"] == 6 and out["shed"] == 0
+    assert out["be_quanta"] > 0
+    (be,) = made
+    assert all(torch.isfinite(x) for x in be.losses)
+
+
+def test_audio_serve_raises_in_both_packages():
+    """Neither serving driver serves the audio family: the reference's
+    engine prefills without frame embeddings and fails in the encoder;
+    the port's engine refuses the model and says why."""
+    with pytest.raises(AttributeError):
+        jserve.serve("whisper-base", requests=2, max_new_tokens=2)
+    with pytest.raises(NotImplementedError, match="frame embeddings"):
+        tserve.serve("whisper-base", requests=2, max_new_tokens=2,
+                     device="cpu")
 
 
 def test_serve_colocate_train_answers_all():

@@ -15,6 +15,7 @@ from repro.models.transformer import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.kernels.mamba2_scan import SSD
 from repro_torch.models.transformer import TransformerLM, build_model
+from repro_torch.tree import tree_leaves
 from repro_torch.weights import params_from_jax
 
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -97,13 +98,35 @@ def test_specs_match_reference(models):
     assert n == sum(x.size for x in jax.tree.leaves(jparams))
 
 
+def _spec_shapes(tree, prefix=()):
+    """{path: shape} of a port spec tree."""
+    if hasattr(tree, "shape"):
+        return {prefix: tuple(tree.shape)}
+    out = {}
+    for k, v in tree.items():
+        out.update(_spec_shapes(v, prefix + (k,)))
+    return out
+
+
 @pytest.mark.parametrize("arch", ["arctic-480b", "jamba-1.5-large-398b",
                                   "qwen3-moe-30b-a3b", "whisper-base"])
-def test_other_families_raise(arch):
-    """The moe, hybrid and audio families wait for the MoE block and the
-    encoder; the dense family builds (tests/test_torch_dense.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(get_config(arch).reduced())
+def test_other_families_build(arch):
+    """The moe, hybrid and audio families build: the port's spec tree is
+    the reference's, leaf for leaf, at full size (shapes only) and
+    reduced, where the port's own init fills every leaf (the parity of
+    the computations: tests/test_torch_families.py)."""
+    for reduce in (False, True):
+        jcfg, cfg = jget_config(arch), get_config(arch)
+        if reduce:
+            jcfg, cfg = jcfg.reduced(), cfg.reduced()
+        want = {tuple(k.key for k in path): leaf.shape for path, leaf in
+                jax.tree_util.tree_flatten_with_path(
+                    jbuild_model(jcfg).param_shapes())[0]}
+        model = TransformerLM(cfg)
+        assert _spec_shapes(model.specs()) == want
+    params = model.init(0, device="cpu")
+    assert _spec_shapes(params) == want
+    assert all(t.dtype == torch.float32 for t in tree_leaves(params))
 
 
 def test_params_from_jax_keeps_bf16_and_casts(models):
