@@ -63,12 +63,24 @@ Phases, each raising on failure:
      SwiGLU matmuls at M = 3000), a 16-token decoder prefill and 8 greedy
      decode steps (matmuls at M = 2) with the cross K/V in the cache, every
      token row of each kernel-bearing sub-block held from one input
-     against the torch-ops path and the plain versions.
-Phases 4, 5, 6, 7 (d), 8 (a) and 8 (b) each zero the launch counts before
-their path and read them after; every entry point of the path must have
-run, and no bf16 launch may have taken a CUDA-core (f32) route. The line before the
-last is the kernels' JSON summary, the last line ``{"ok": true, "device":
-{...}}``.
+     against the torch-ops path and the plain versions;
+  9. the serving steps: deepseek-coder-33b whole (62 layers, 33.34 B
+     parameters drawn leaf by leaf in bf16, 62.1 GiB) on its use_pallas
+     path through ``make_prefill_step`` (4 prompts of 512 tokens) and 16
+     greedy ``make_decode_step`` steps (the cache padded to 1024) on the
+     one-card mesh; every prefill layer runs flash attention (G = 7, D =
+     128) and the three SwiGLU matmuls (M = 2048), every decode step the
+     matmuls at M = 4; the shardings put every leaf whole on the card, the
+     decode step passes the cache through and writes its row, each first
+     token equals the prompt's own B = 1 prefill's, and the layers are
+     held from one input against the plain versions (bf16) and the
+     torch-ops path (f32 activations); then ``ef_compress_tree`` over
+     phase 7's gradient tree on the card, bit for bit the CPU's.
+Phases 4, 5, 6, 7 (d), 8 (a), 8 (b) and 9 each zero the launch counts
+before their path and read them after; every entry point of the path must
+have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
+line before the last is the kernels' JSON summary, the last line ``{"ok":
+true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -133,6 +145,24 @@ MOE_ATTN_TOL = 5e-2
 # (``rehearse_phase8``) gives at most 2.8e-3, so 5e-2, as MOE_ATTN_TOL
 WHISPER_BATCH, WHISPER_PROMPT, WHISPER_STEPS = 2, 16, 8
 WHISPER_TOL = 5e-2
+# phase 9: deepseek-coder-33b whole (62 layers, 33.34 B parameters, 62.1 GiB
+# in bf16) through the serving steps: STEPS_BATCH prompts of STEPS_PROMPT
+# tokens prefilled, the cache padded to STEPS_CAPACITY, STEPS_NEW greedy
+# decode steps; its layer-wise gates are phase 6's (PLAIN_TOL, MODEL_TOL_F32)
+STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, STEPS_NEW = 4, 512, 1024, 16
+# phase 9, relative L2 error of layer 0's k and v row that the first decode
+# step writes at index STEPS_PROMPT, against the same row of a B = 1
+# prefill of the prompt and its first token: one projection deep, so the
+# random init's chaos does not reach it. The two differ in the
+# projection's M (STEPS_BATCH rows against STEPS_PROMPT + 1), so in the
+# order of the f32 sums, and round apart by at most a bf16 step (2^-8 =
+# 3.9e-3 relative) where they round at all; a row from another position,
+# token or layer reads O(1) (0.27 to 1.6 at reduced width). The CPU
+# rehearsal reads 0 (the same ops at both M), an H100 2.8e-4, so 1e-2
+DECODE_ROW_TOL = 1e-2
+# the error-feedback identity of the gradient compression, within the
+# reference's tolerance (tests/test_compression.py)
+EF_TOL = dict(rtol=1e-5, atol=1e-6)
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -1396,11 +1426,13 @@ def train_gate(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
     from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import (compute_grads, make_optimizer,
                                           make_train_step)
     from repro_torch.launch.train import train
     from repro_torch.models.common import param_count_tree
     from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_map
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     out = train("mamba2-130m", reduced=reduced, steps=steps, batch=batch,
@@ -1429,7 +1461,8 @@ def train_gate(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     params = model.init(SEED, device=dev)
     opt = make_optimizer(cfg)
     state = opt.init(params)
-    step = make_train_step(model, ShapeConfig("t", seq, batch, "train"))
+    step = make_train_step(model, make_host_mesh(device=dev),
+                           ShapeConfig("t", seq, batch, "train")).fn
     b = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
          for k, v in SyntheticLMDataset(DataConfig(
              cfg.vocab_size, seq, batch, seed=SEED)).batch_at(0).items()}
@@ -1445,6 +1478,7 @@ def train_gate(dev, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
               f"{PEAK_BYTES / 1e12:.2f} TB/s), {bound_ms / ms:.1%} of "
               "bound", flush=True)
     synchronize(dev)
+    return tree_map(lambda g: g.cpu(), grads)
 
 
 def restart_gate(dev, ckpt_dir, steps=8, batch=4, seq=256, reduced=False):
@@ -1586,10 +1620,12 @@ def colocation_gate(cfg, dev, prompts=PROMPTS, new_tokens=NEW_TOKENS,
 
 
 def training_phase(mcfg, dev):
-    """Phase 7, gates (a) to (e); returns the launch counts of (d)."""
+    """Phase 7, gates (a) to (e); returns the launch counts of (d) and the
+    full model's gradient tree of gate (b) (on the CPU), which phase 9
+    compresses."""
     t0 = time.monotonic()
     grad_gate(mcfg, dev, torch.device("cpu"))
-    train_gate(dev)
+    grads = train_gate(dev)
     gc.collect()
     torch.cuda.empty_cache()
     ckpt = Path(__file__).resolve().parent / "build" / "restart_gate"
@@ -1615,7 +1651,7 @@ def training_phase(mcfg, dev):
                              "not answer every request on the card with "
                              "BE quanta taken")
     print(f"  phase 7 in {time.monotonic() - t0:.1f} s", flush=True)
-    return counts
+    return counts, grads
 
 
 # ---------------------------------------------------------------------------
@@ -2101,6 +2137,305 @@ def rehearse_phase8():
           f"logits by {rel_err(l1, l0):.2e} (relative L2)", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: deepseek-coder-33b whole in bf16 through the serving steps
+# ---------------------------------------------------------------------------
+
+
+def decode_cache_gate(prefill_cache, decoded, prompt: int) -> None:
+    """The first decode step's cache against the prefill's: every k/v row
+    below ``prompt`` passed through bit for bit, row ``prompt`` written
+    (finite, not all zero), the rows after it still the padding's
+    zeros."""
+    for key in ("k", "v"):
+        old, new = prefill_cache[key], decoded[key]
+        kept = torch.equal(new[:, :, :prompt], old)
+        row = new[:, :, prompt]
+        written = bool(torch.isfinite(row).all()) and bool(
+            (row != 0).any(dim=(-2, -1)).all())
+        rest = not bool(new[:, :, prompt + 1:].any())
+        print(f"  decode step 1, cache {key}: rows < {prompt} unchanged "
+              f"{kept}, row {prompt} written in every layer and sequence "
+              f"{written}, rows > {prompt} zero {rest} "
+              f"{'ok' if kept and written and rest else 'FAIL'}", flush=True)
+        if not (kept and written and rest):
+            raise AssertionError(f"decode step: the {key} cache was not "
+                                 "passed through and written at the index")
+
+
+def decode_row_gate(written, expected, prompt: int) -> None:
+    """Layer 0's k and v rows that the decode step wrote at ``prompt``
+    (``written[key]``, (B, KV heads, D)) against the rows that a B = 1
+    prefill of each prompt and its first token puts there
+    (``expected[key]``): each sequence's relative L2 error within
+    DECODE_ROW_TOL."""
+    errs = {key: [rel_err(w, e) for w, e in zip(written[key],
+                                                 expected[key])]
+            for key in ("k", "v")}
+    ok = max(max(e) for e in errs.values()) <= DECODE_ROW_TOL
+    print(f"  decode step 1, layer 0's row {prompt} against each sequence's "
+          f"B = 1 prefill of its prompt and first token, rel err k "
+          f"{max(errs['k']):.2e}, v {max(errs['v']):.2e} "
+          f"[<= {DECODE_ROW_TOL:g}] {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("decode step: layer 0's written k/v row is not "
+                             "the prefill's row at that position")
+
+
+def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
+                capacity=STEPS_CAPACITY, steps=STEPS_NEW):
+    """Phase 9: ``cfg`` whole on its use_pallas path through the serving
+    steps on the one-card mesh (``make_host_mesh()``), weights drawn leaf
+    by leaf in the model dtype (bf16; ``model.init(..., dtype=...)`` draws
+    a narrow leaf slice by slice): ``make_prefill_step`` on ``batch``
+    prompts of ``prompt`` tokens, the cache padded to ``capacity``, then
+    ``steps`` greedy ``make_decode_step`` steps. Every prefill layer runs
+    flash attention and the three SwiGLU matmuls, every decode step the
+    three matmuls at M = ``batch``. The decode step's ``cache_index`` is
+    a host scalar: the cache write slices at it (``int(index)``), which
+    for a scalar on the card would wait for the card twice a layer.
+    Gated: the shardings put every leaf whole on the card; the decode
+    step's cache (``decode_cache_gate``) and layer 0's row it writes
+    against a B = 1 prefill of the prompt and its first token
+    (``decode_row_gate``); each first greedy token against the same
+    path's own B = 1 prefill of that prompt; layer by layer from one
+    input (``layerwise``), the bf16 kernels against their plain versions
+    (PLAIN_LAYERS layers, PLAIN_TOL) and, with f32 activations on the same
+    bf16 weights, the kernel path against the torch-ops path (every layer,
+    MODEL_TOL_F32). Returns the launch counts of the prefill and decode
+    steps and the kernel rows."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, kv_cache_specs
+    from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_decode_step, make_prefill_step,
+                                          serving_param_shapes,
+                                          serving_param_shardings)
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model, pad_cache
+    from repro_torch.tree import tree_leaves
+    cfg = dataclasses.replace(cfg, use_pallas=True)
+    model = build_model(cfg)
+    mesh = make_host_mesh(device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev, dtype=cfg.dtype)
+    synchronize(dev)
+    n_params = param_count_tree(params)
+    drawn = time.monotonic() - t0
+    peak = (f", peak device memory of the draw "
+            f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB"
+            if dev.type == "cuda" else "")
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} kv heads of "
+          f"{cfg.head_dim_} (G = {cfg.q_per_kv}), d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e9:.3f} B parameters in "
+          f"{cfg.dtype} ({n_params * 2 / 2 ** 30:.1f} GiB, drawn in "
+          f"{drawn:.1f} s{peak}); mesh {mesh.axis_names} {mesh.shape}",
+          flush=True)
+
+    pre = make_prefill_step(model, mesh, ShapeConfig("prefill", prompt,
+                                                     batch, "prefill"))
+    dec = make_decode_step(model, mesh, ShapeConfig("decode", capacity,
+                                                    batch, "decode"))
+    shards = serving_param_shardings(model.param_axes(),
+                                     serving_param_shapes(model), mesh)
+    leaves = tree_leaves(params)
+    whole = all(s.shard_shape(p.shape) == tuple(p.shape)
+                for s, p in zip(tree_leaves(shards), leaves))
+    layout = all((tuple(a.shape), a.dtype) == (tuple(p.shape), p.dtype)
+                 for a, p in zip(tree_leaves(pre.abstract_inputs[0]), leaves))
+    print(f"  serving_param_shardings on {mesh.shape}: every one of "
+          f"{len(leaves)} leaves whole on the card {whole}; the weights "
+          f"match the steps' abstract inputs {layout} "
+          f"{'ok' if whole and layout else 'FAIL'}", flush=True)
+    if not (whole and layout):
+        raise AssertionError("the one-card mesh's shardings split a leaf, "
+                             "or the weights are not the steps' inputs")
+
+    rng = np.random.default_rng(SEED + 11)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(batch, prompt)),
+                           dtype=torch.int32, device=dev)
+    pre.fn(params, {"tokens": toks})                 # warm-up, not counted
+    synchronize(dev)
+
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    t = time.monotonic()
+    logits, cache = pre.fn(params, {"tokens": toks})
+    synchronize(dev)
+    prefill_s = time.monotonic() - t
+    out = [logits[:, -1].argmax(dim=-1)]
+    kv = pad_cache(cache, capacity)
+    step_s, first = [], None
+    for i in range(steps):
+        t = time.monotonic()
+        logits_d, kv = dec.fn(params, {
+            "tokens": out[-1][:, None].to(torch.int32), "cache": kv,
+            "cache_index": torch.tensor(prompt + i, dtype=torch.int32)})
+        out.append(logits_d[:, -1].argmax(dim=-1))
+        synchronize(dev)
+        step_s.append(time.monotonic() - t)
+        first = kv if first is None else first
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+    tokens = torch.stack(out, dim=1)
+    print(f"  prefill step, {batch} x {prompt} tokens: "
+          f"{prefill_s * 1e3:.1f} ms (host clock); {steps} decode steps: "
+          f"{batch * steps / sum(step_s):.1f} tokens/s "
+          f"({sum(step_s) / steps * 1e3:.2f} ms a step); greedy tokens "
+          f"{tokens.tolist()}", flush=True)
+    if dev.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
+              flush=True)
+
+    # -- checks ---------------------------------------------------------------
+    if not (torch.isfinite(logits).all() and torch.isfinite(logits_d).all()
+            and ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        raise AssertionError("serving steps: non-finite logits or a token "
+                             "outside the vocabulary")
+    decode_cache_gate(cache, first, prompt)
+    written = {k: first[k][0, :, prompt].clone() for k in ("k", "v")}
+    del first, kv
+    one = make_prefill_step(model, mesh, ShapeConfig("prefill1", prompt, 1,
+                                                     "prefill"))
+    alone = [one.fn(params, {"tokens": toks[b:b + 1]})[0][0, -1]
+             for b in range(batch)]
+    firsts = [int(a.argmax()) for a in alone]
+    diffs = [rel_err(logits[b, -1], a) for b, a in enumerate(alone)]
+    same = firsts == out[0].tolist()
+    print(f"  first greedy tokens {out[0].tolist()} of the {batch}-prompt "
+          f"prefill step, each prompt's own B = 1 prefill step "
+          f"{firsts}: equal {same} (last-token logits rel err "
+          f"{max(diffs):.2e}) {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        raise AssertionError("the batched prefill's first tokens are not "
+                             "each prompt's own prefill's")
+    del alone, cache, logits, logits_d
+    ext = make_prefill_step(model, mesh, ShapeConfig(
+        "prefill1+1", prompt + 1, 1, "prefill"))
+    expected = {"k": [], "v": []}
+    for b in range(batch):
+        seq = torch.cat([toks[b:b + 1],
+                         out[0][b:b + 1, None].to(torch.int32)], dim=1)
+        c = ext.fn(params, {"tokens": seq})[1]
+        for k in expected:
+            expected[k].append(c[k][0, 0, prompt])
+        del c
+    decode_row_gate(written, expected, prompt)
+    del written, expected
+    x = toks[:1].long()
+    t = time.monotonic()
+    e16 = layerwise(model, model, params, x, PLAIN_LAYERS,
+                    ref_ctx=plain_versions)
+    f32 = [build_model(dataclasses.replace(cfg, dtype=torch.float32,
+                                           use_pallas=pal))
+           for pal in (True, False)]
+    e32 = layerwise(*f32, params, x, cfg.num_layers)
+    ok = max(e16) <= PLAIN_TOL and max(e32) <= MODEL_TOL_F32
+    print(f"  layer by layer, one {prompt}-token prompt: bf16 kernels vs "
+          f"plain versions, {PLAIN_LAYERS} layers: attention {e16[0]:.2e}, "
+          f"MLP {e16[1]:.2e}, output {e16[2]:.2e} [<= {PLAIN_TOL:g}]; f32 "
+          f"activations on the bf16 weights, kernels vs torch ops, "
+          f"{cfg.num_layers} layers: attention {e32[0]:.2e}, MLP "
+          f"{e32[1]:.2e}, output {e32[2]:.2e} [<= {MODEL_TOL_F32:g}] "
+          f"{'ok' if ok else 'FAIL'}; {time.monotonic() - t:.1f} s",
+          flush=True)
+    if not ok:
+        raise AssertionError("serving steps: a layer on the kernel path "
+                             "disagrees with the plain versions or the "
+                             "torch-ops path")
+
+    batch_in = {"tokens": toks}
+    profile_once(f"prefill step, {batch} x {prompt} tokens",
+                 lambda: pre.fn(params, batch_in), dev)
+    dkv = {k: torch.zeros(s, dtype=d, device=dev)
+           for k, (s, d) in kv_cache_specs(cfg, batch, capacity).items()}
+    dbatch = {"tokens": toks[:, :1], "cache": dkv,
+              "cache_index": torch.tensor(prompt, dtype=torch.int32)}
+    profile_once(f"decode step, {batch} sequences, cache of {capacity}",
+                 lambda: dec.fn(params, dbatch), dev)
+    del dkv, dbatch
+    print("  the kernels at the steps' shapes (plain form, as run):",
+          flush=True)
+    rng = np.random.default_rng(SEED + 12)
+    cases = {**mm_serve_cases(cfg, dev, (batch * prompt, batch), rng),
+             **flash_serve_cases(cfg, dev, (prompt,), rng, batch=batch,
+                                 label="flash_steps")}
+    rows = time_cases(cases, REPS, cfg.num_heads, plain_only=tuple(cases))
+
+    print(f"  launches on the serving steps: {json.dumps(counts)}")
+    cuda_core_guard(counts, "serving steps")
+    L = cfg.num_layers
+    need = {"flash_plain": L, "matmul_plain": 3 * L * (1 + steps)}
+    if {k: counts[k] for k in need} != need:
+        raise AssertionError(f"the serving steps' launches "
+                             f"{ {k: counts[k] for k in need} } are not one "
+                             f"prefill's and {steps} decode steps' {need}")
+    return counts, rows
+
+
+def compression_gate(grads, dev):
+    """Two error-feedback steps of ``ef_compress_tree`` over a gradient
+    tree (``grads``, on the CPU) on ``dev`` and on the CPU: ``q`` and
+    ``scale`` bit for bit equal, and on ``dev`` the error-feedback
+    identity decompress + new residual == grad + old residual, within the
+    reference's tolerance (tests/test_compression.py). Prints the payload
+    against the raw tree and the time of one step on the card."""
+    from repro_torch.device import synchronize
+    from repro_torch.distributed.compression import (Compressed,
+                                                     decompress_tree,
+                                                     ef_compress_tree,
+                                                     init_residuals,
+                                                     payload_bytes)
+    from repro_torch.tree import tree_leaves, tree_map
+
+    def two_steps(g):
+        r0 = init_residuals(g)
+        c1, r1 = ef_compress_tree(g, r0)
+        c2, r2 = ef_compress_tree(g, r1)
+        return c1, c2, r1, r2
+
+    def comp(tree):
+        return tree_leaves(tree, is_leaf=lambda t: isinstance(t, Compressed))
+
+    g = tree_map(lambda t: t.to(dev), grads)
+    on_dev, on_cpu = two_steps(g), two_steps(grads)
+    equal = all(torch.equal(a.q.cpu(), b.q) and torch.equal(a.scale.cpu(),
+                                                            b.scale)
+                for i in (0, 1) for a, b in zip(comp(on_dev[i]),
+                                                comp(on_cpu[i])))
+    c2, r1, r2 = on_dev[1], on_dev[2], on_dev[3]
+    excess = max(((d + n) - (x + o)).abs().sub(
+        EF_TOL["rtol"] * (x + o).abs()).max().item()
+        for d, n, x, o in zip(tree_leaves(decompress_tree(c2)),
+                              tree_leaves(r2), tree_leaves(g),
+                              tree_leaves(r1)))
+    ok = equal and excess <= EF_TOL["atol"]
+    raw, sent = payload_bytes(g), payload_bytes(on_dev[0])
+    n = sum(t.numel() for t in tree_leaves(g))
+    ms = (cuda_ms(lambda: ef_compress_tree(g, r1), REPS)
+          if dev.type == "cuda" else None)
+    synchronize(dev)
+    print(f"  gradient compression over {len(tree_leaves(g))} leaves "
+          f"({n / 1e6:.1f} M values) on {dev}: q and scale equal to the "
+          f"CPU's bit for bit in both steps {equal}; decompress + new "
+          f"residual - (grad + old residual): max(|diff| - rtol|ref|) "
+          f"{excess:.2e} [<= atol {EF_TOL['atol']:g}, rtol "
+          f"{EF_TOL['rtol']:g}] {'ok' if ok else 'FAIL'}; payload "
+          f"{sent / 1e6:.2f} MB against {raw / 1e6:.2f} MB raw "
+          f"({raw / sent:.2f}x smaller)"
+          + ("" if ms is None else f"; one step {ms:.3f} ms"), flush=True)
+    if not ok:
+        raise AssertionError("gradient compression: the card's q/scale "
+                             "differ from the CPU's or the error-feedback "
+                             "identity fails")
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -2207,7 +2542,7 @@ def main() -> int:
 
     print("[7] training on the card: gradients, the full model, restart, "
           "co-location with the served model", flush=True)
-    c_counts = training_phase(mcfg, dev)
+    c_counts, grads = training_phase(mcfg, dev)
     # phase 8 holds 58 GiB of parameters: free what phases 6 and 7 left
     gc.collect()
     torch.cuda.empty_cache()
@@ -2233,6 +2568,21 @@ def main() -> int:
     print("  whisper shapes: " + json.dumps(
         {label: r for (label, _), r in w_rows.items()}))
     print(f"  phase 8 in {time.monotonic() - t8:.1f} s", flush=True)
+    # phase 9 holds 62.1 GiB of bf16 weights: free what phase 8 left
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[9] the serving steps: deepseek-coder-33b whole in bf16 through "
+          "make_prefill_step and make_decode_step; gradient compression",
+          flush=True)
+    t9 = time.monotonic()
+    s_counts, s_rows = steps_phase(get_config("deepseek-coder-33b"), dev)
+    print("  serving-step shapes: " + json.dumps(
+        {label: r for (label, _), r in s_rows.items()}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    compression_gate(grads, dev)
+    print(f"  phase 9 in {time.monotonic() - t9:.1f} s", flush=True)
 
     summary = []
     for fam, label, shape, route in lines:
@@ -2244,7 +2594,8 @@ def main() -> int:
                        "qwen_serving": d_counts[name],
                        "colocated": c_counts[name],
                        "moe_serving": q_counts[name],
-                       "whisper": w_counts[name]}
+                       "whisper": w_counts[name],
+                       "deepseek_steps": s_counts[name]}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,

@@ -1,9 +1,10 @@
 """Architecture registry — importing this package registers all configs
 (the reference's ten; the model builds the dense, vlm and ssm ones)."""
-from repro_torch.configs.base import (REGISTRY, HybridConfig, ModelConfig,
-                                      MoEConfig, SSMConfig, ShapeConfig,
-                                      all_arch_names,
-                                      get_config, kv_cache_specs)
+from repro_torch.configs.base import (REGISTRY, SHAPES, HybridConfig,
+                                      ModelConfig, MoEConfig, SSMConfig,
+                                      ShapeConfig, all_arch_names,
+                                      get_config, input_specs,
+                                      kv_cache_specs, shape_applicable)
 
 from repro_torch.configs import (arctic_480b, codeqwen15_7b,  # noqa: F401
                                  deepseek_coder_33b, jamba_15_large_398b,
@@ -11,7 +12,7 @@ from repro_torch.configs import (arctic_480b, codeqwen15_7b,  # noqa: F401
                                  qwen25_14b, qwen3_moe_30b_a3b, whisper_base)
 
 __all__ = [
-    "REGISTRY", "HybridConfig", "ModelConfig", "MoEConfig", "SSMConfig",
-    "ShapeConfig",
-    "all_arch_names", "get_config", "kv_cache_specs",
+    "REGISTRY", "SHAPES", "HybridConfig", "ModelConfig", "MoEConfig",
+    "SSMConfig", "ShapeConfig", "all_arch_names", "get_config",
+    "input_specs", "kv_cache_specs", "shape_applicable",
 ]

@@ -3,7 +3,9 @@
 
 Every architecture is a ``ModelConfig`` produced by one module in this
 package and registered in ``REGISTRY``. ``kv_cache_specs`` gives the
-serving cache as ``(shape, dtype)`` pairs.
+serving cache as ``(shape, dtype)`` pairs; ``input_specs`` gives a step's
+inputs as meta tensors, the port's stand-in for ``jax.ShapeDtypeStruct``
+(a shape and a dtype, no storage).
 """
 from __future__ import annotations
 
@@ -227,6 +229,21 @@ class ShapeConfig:
     kind: str          # train | prefill | decode | long_decode
 
 
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "long_decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; else reason for the skip."""
+    if shape.kind == "long_decode" and not cfg.sub_quadratic:
+        return False, "skip(full-attn): long_500k needs sub-quadratic attention"
+    return True, ""
+
+
 # ---------------------------------------------------------------------------
 # Serving cache
 # ---------------------------------------------------------------------------
@@ -260,6 +277,38 @@ def kv_cache_specs(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Spec]:
         specs["cross_v"] = (
             (cfg.num_layers, batch, cfg.num_audio_frames, cfg.num_kv_heads, h),
             cfg.dtype)
+    return specs
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """Model inputs for one (arch, shape) cell as meta tensors.
+
+    train/prefill: full-sequence token batch. decode/long_decode: one new
+    token per sequence + the populated cache.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    specs: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = _meta((b, s), torch.int32)
+        if shape.kind == "train":
+            specs["targets"] = _meta((b, s), torch.int32)
+        if cfg.encoder_layers:
+            # stub modality frontend: precomputed frame embeddings
+            specs["encoder_embeds"] = _meta(
+                (b, cfg.num_audio_frames, cfg.d_model), cfg.dtype)
+        if cfg.mrope_sections is not None:
+            specs["positions"] = _meta((3, b, s), torch.int32)
+    else:  # decode | long_decode: one token against a cache of length s
+        specs["tokens"] = _meta((b, 1), torch.int32)
+        specs["cache"] = {k: _meta(*v)
+                          for k, v in kv_cache_specs(cfg, b, s).items()}
+        specs["cache_index"] = _meta((), torch.int32)
+        if cfg.mrope_sections is not None:
+            specs["positions"] = _meta((3, b, 1), torch.int32)
     return specs
 
 

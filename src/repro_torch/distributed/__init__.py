@@ -1,2 +1,3 @@
-"""Distributed control plane (the parts of ``repro.distributed`` that the
-training driver uses)."""
+"""Distributed control plane (the port of ``repro.distributed``): the
+heartbeat and straggler monitors, the logical-axis sharding rules and the
+gradient compression."""

@@ -34,6 +34,7 @@ from repro_torch.core.metrics import LatencyStats
 from repro_torch.core.traffic import maf2_like_trace
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.transformer import TransformerLM, build_model
 from repro_torch.serving import (BrownoutPolicy, HedgePolicy, RetryPolicy,
@@ -50,8 +51,9 @@ class BestEffortTrainer:
                  seq: int = 32, seed: int = 0,
                  device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(model, ShapeConfig("be", seq, batch,
-                                                          "train"))
+        self.step_fn = make_train_step(
+            model, make_host_mesh(device=self.device),
+            ShapeConfig("be", seq, batch, "train")).fn
         self.params = model.init(seed + 1, device=self.device)
         self.opt_state = make_optimizer(model.cfg).init(self.params)
         self.data = SyntheticLMDataset(DataConfig(model.cfg.vocab_size, seq,

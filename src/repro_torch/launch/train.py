@@ -25,6 +25,7 @@ from repro_torch.data import DataConfig, build_pipeline
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.distributed.fault_tolerance import (HeartbeatMonitor,
                                                      StragglerDetector)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.transformer import build_model
 from repro_torch.optim.schedule import linear_warmup_cosine
@@ -39,14 +40,20 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
           device: Union[str, torch.device, None] = None) -> Dict[str, Any]:
     """``total_steps`` fixes the LR-schedule horizon independently of this
     invocation's ``steps`` so a checkpoint-restart run matches a straight
-    run exactly (defaults to ``steps``). Returns the reference's keys plus
-    ``device`` and ``step_ms`` (host ms of each step, ending in a
+    run exactly (defaults to ``steps``). The mesh is the reference's,
+    ``make_host_mesh(model_parallel)``: the model axis clamped to the
+    devices of this run (one per process), so a single process trains on
+    a (1, 1) mesh with any ``model_parallel`` on a host of any number of
+    cards, and a larger mesh is refused. Returns the reference's keys
+    plus ``device`` and ``step_ms`` (host ms of each step, ending in a
     synchronize)."""
-    if model_parallel > 1:
-        raise NotImplementedError(
-            "model_parallel > 1 needs the port's torch.distributed layer "
-            "(ROADMAP Queue 1 item 8)")
     dev = resolve_device(device)
+    mesh = make_host_mesh(model_parallel, device=dev)
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"training sharded over the {mesh.size} processes of {mesh} is "
+            "not ported (it needs the parameters as DTensors); run one "
+            "process")
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -54,8 +61,8 @@ def train(arch: str, *, steps: int = 100, batch: int = 8, seq: int = 128,
     shape = ShapeConfig("driver", seq, batch, "train")
     horizon = total_steps or steps
     sched = linear_warmup_cosine(max(horizon // 20, 1), horizon)
-    step_fn = make_train_step(model, shape, schedule=sched,
-                              num_microbatches=num_microbatches, lr=lr)
+    step_fn = make_train_step(model, mesh, shape, schedule=sched,
+                              num_microbatches=num_microbatches, lr=lr).fn
     params = model.init(seed, device=dev)
     opt_state = make_optimizer(cfg, lr).init(params)
 

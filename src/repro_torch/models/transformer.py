@@ -25,8 +25,9 @@ the layers on every path, the checkpointed one included.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,7 +36,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.common import P, init_from_specs, stacked
+from repro_torch.models.common import (P, axes_from_specs, init_from_specs,
+                                       shapes_from_specs, stacked,
+                                       tree_map_specs)
 from repro_torch.models.layers import attention_block, rms_norm, swiglu_mlp
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -165,12 +168,24 @@ class TransformerLM:
         return s
 
     def init(self, seed: int = 0,
-             device: Union[str, torch.device, None] = None
-             ) -> Dict[str, Any]:
+             device: Union[str, torch.device, None] = None,
+             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``,
-        on the card unless ``device`` says otherwise."""
+        on the card unless ``device`` says otherwise; every leaf in
+        ``dtype`` where given (the serving steps' model-dtype weights), else
+        in ``cfg.param_dtype``."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-        return init_from_specs(self.specs(), gen, self.cfg.param_dtype)
+        specs = self.specs()
+        if dtype is not None:
+            specs = tree_map_specs(
+                lambda p: dataclasses.replace(p, dtype=dtype), specs)
+        return init_from_specs(specs, gen, self.cfg.param_dtype)
+
+    def param_shapes(self):
+        return shapes_from_specs(self.specs(), self.cfg.param_dtype)
+
+    def param_axes(self):
+        return axes_from_specs(self.specs())
 
     # -- encoder (audio) ------------------------------------------------------
 

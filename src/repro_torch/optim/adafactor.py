@@ -62,6 +62,33 @@ def adafactor_init(params) -> AfState:
                    slots=tree_map(slot, params))
 
 
+def adafactor_slot_shapes(param_shapes) -> AfState:
+    """Meta-tensor mirror of ``adafactor_init`` (a step's abstract
+    inputs)."""
+    def meta(shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    def slot(p):
+        if len(p.shape) >= 2:
+            return _Factored(vr=meta(p.shape[:-1]),
+                             vc=meta(p.shape[:-2] + p.shape[-1:]))
+        return _Full(v=meta(p.shape))
+    return AfState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                   slots=tree_map(slot, param_shapes))
+
+
+def adafactor_slot_axes(param_axes) -> AfState:
+    """Logical-axis mirror for sharding the factored state."""
+    def slot(axes):
+        axes = tuple(axes)
+        if len(axes) >= 2:
+            return _Factored(vr=axes[:-1], vc=axes[:-2] + axes[-1:])
+        return _Full(v=axes)
+    return AfState(step=(),
+                   slots=tree_map(slot, param_axes,
+                                  is_leaf=lambda t: isinstance(t, tuple)))
+
+
 def _rms(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.mean(torch.square(x)))
 

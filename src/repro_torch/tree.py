@@ -9,7 +9,7 @@ written by one restores in the other.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 
 class TreeDef:
@@ -45,24 +45,32 @@ class TreeDef:
         return f"{self.meta.__name__}({inner})"
 
 
-def _def(tree, leaves: List[Any]) -> TreeDef:
+def _def(tree, leaves: List[Any], is_leaf) -> TreeDef:
+    if is_leaf is not None and is_leaf(tree):
+        leaves.append(tree)
+        return TreeDef("leaf")
     if tree is None:
         return TreeDef("none")
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
-        return TreeDef("dict", keys, [_def(tree[k], leaves) for k in keys])
+        return TreeDef("dict", keys,
+                       [_def(tree[k], leaves, is_leaf) for k in keys])
     if isinstance(tree, list):
-        return TreeDef("list", None, [_def(x, leaves) for x in tree])
+        return TreeDef("list", None, [_def(x, leaves, is_leaf) for x in tree])
     if isinstance(tree, tuple):
-        return TreeDef("tuple", type(tree), [_def(x, leaves) for x in tree])
+        return TreeDef("tuple", type(tree),
+                       [_def(x, leaves, is_leaf) for x in tree])
     leaves.append(tree)
     return TreeDef("leaf")
 
 
-def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
-    """(leaves in ``jax.tree.flatten``'s order, structure)."""
+def tree_flatten(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                 ) -> Tuple[List[Any], TreeDef]:
+    """(leaves in ``jax.tree.flatten``'s order, structure). ``is_leaf``, as
+    in JAX, stops the descent at the subtrees it accepts (a tuple of
+    logical axis names, say)."""
     leaves: List[Any] = []
-    return leaves, _def(tree, leaves)
+    return leaves, _def(tree, leaves, is_leaf)
 
 
 def _build(td: TreeDef, it: Iterator[Any]):
@@ -112,13 +120,15 @@ def flatten_up_to(treedef: TreeDef, tree) -> List[Any]:
             for x in flatten_up_to(c, s)]
 
 
-def tree_map(fn: Callable[..., Any], tree, *rest) -> Any:
+def tree_map(fn: Callable[..., Any], tree, *rest,
+             is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
     """``fn`` over the leaves of ``tree`` and the matching leaves (or
     subtrees) of ``rest``, keeping ``tree``'s structure."""
-    leaves, td = tree_flatten(tree)
+    leaves, td = tree_flatten(tree, is_leaf)
     others = [flatten_up_to(td, r) for r in rest]
     return tree_unflatten(td, [fn(*xs) for xs in zip(leaves, *others)])
 
 
-def tree_leaves(tree) -> List[Any]:
-    return tree_flatten(tree)[0]
+def tree_leaves(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                ) -> List[Any]:
+    return tree_flatten(tree, is_leaf)[0]

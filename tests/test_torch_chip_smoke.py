@@ -372,3 +372,114 @@ def test_traced_as_ranges_and_restores():
     ranges = [e for e in prof.events() if e.name == "step"]
     assert len(ranges) == 1
     assert any(c.name == "aten::add" for c in ranges[0].cpu_children)
+
+
+def test_steps_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 9 at reduced deepseek-coder-33b width: bf16 weights drawn in
+    the model dtype, the one-card mesh's shardings whole, the prefill and
+    decode steps' gates passed (the cache passed through and written, the
+    first tokens each prompt's own, the layers from one input), the
+    kernels held against their plain versions at the steps' shapes, and
+    the launch-count guard firing because the plain versions launch
+    nothing."""
+    cfg = get_config("deepseek-coder-33b").reduced()
+    with pytest.raises(AssertionError, match="serving steps' launches") as e:
+        cs.steps_phase(cfg, torch.device("cpu"), batch=2, prompt=32,
+                       capacity=48, steps=3)
+    # 2 layers: one prefill, 3 decode steps
+    assert "{'flash_plain': 2, 'matmul_plain': 24}" in str(e.value)
+    out = capsys.readouterr().out
+    assert "in torch.bfloat16" in out and "mesh ('data', 'model') (1, 1)" \
+        in out
+    assert "every one of 12 leaves whole on the card True" in out
+    for key in ("k", "v"):
+        assert (f"cache {key}: rows < 32 unchanged True, row 32 written in "
+                "every layer and sequence True, rows > 32 zero True ok") in out
+    assert re.search(r"own B = 1 prefill step \[\d+, \d+\]: equal True", out)
+    assert ("layer 0's row 32 against each sequence's B = 1 prefill of its "
+            "prompt and first token, rel err k 0.00e+00, v 0.00e+00") in out
+    line = next(ln for ln in out.splitlines() if "layer by layer, one" in ln)
+    assert "2 layers: attention" in line and " ok; " in line, line
+    for label in ("mm_serve_up_m64", "mm_serve_down_m64", "mm_serve_up_m2",
+                  "mm_serve_down_m2", "flash_steps_s32"):
+        assert f"{label} plain: max_abs=0.000e+00" in out, label
+
+
+def test_decode_cache_gate_fails_on_a_changed_row():
+    """The decode gate: rows below the index passed through, the index's
+    row written, the rest zero; a changed old row, an unwritten row or a
+    row written past the index each fail."""
+    g = torch.Generator().manual_seed(0)
+    old = {k: torch.randn(2, 3, 4, 2, 8, generator=g) for k in ("k", "v")}
+    new = {k: torch.cat([v, torch.zeros(2, 3, 4, 2, 8)], dim=2)
+           for k, v in old.items()}
+    for k in new:
+        new[k][:, :, 4] = 1.0
+    cs.decode_cache_gate(old, new, 4)
+    for broken in ("old", "unwritten", "past"):
+        bad = {k: v.clone() for k, v in new.items()}
+        if broken == "old":
+            bad["v"][1, 0, 2, 0, 0] += 1e-3
+        elif broken == "unwritten":
+            bad["k"][0, 1, 4] = 0.0
+        else:
+            bad["k"][1, 2, 6, 1, 3] = 1.0
+        with pytest.raises(AssertionError, match="decode step"):
+            cs.decode_cache_gate(old, bad, 4)
+
+
+def test_decode_row_gate_catches_a_wrong_row():
+    """Layer 0's row that a decode step writes at the index equals the row
+    of a prefill of the prompt and its token; a row roped at the next
+    position, made from another token or taken from layer 1 fails."""
+    from repro_torch.models.transformer import build_model, pad_cache
+    model = build_model(get_config("deepseek-coder-33b").reduced())
+    params = model.init(0, device="cpu", dtype=model.cfg.dtype)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(2, 8)))
+    nxt = torch.as_tensor([[3], [5]])
+    kv = pad_cache(model.prefill(params, toks)[1], 16)
+
+    def written(layer=0, **kw):
+        c = model.decode_step(params, nxt, {k: v.clone()
+                                            for k, v in kv.items()},
+                              8, **kw)[1]
+        return {k: c[k][layer, :, 8] for k in ("k", "v")}
+
+    def expected(step):
+        rows = [model.prefill(params, torch.cat([toks[b:b + 1],
+                                                 step[b:b + 1]], dim=1))[1]
+                for b in range(2)]
+        return {k: [r[k][0, 0, 8] for r in rows] for k in ("k", "v")}
+
+    right = expected(nxt)
+    cs.decode_row_gate(written(), right, 8)
+    for bad, want in ((written(positions=torch.full((2, 1), 9)), right),
+                      (written(), expected(nxt + 1)),
+                      (written(layer=1), right)):
+        with pytest.raises(AssertionError, match="layer 0's written"):
+            cs.decode_row_gate(bad, want, 8)
+
+
+def test_compression_gate_on_cpu(capsys, monkeypatch):
+    """The compression gate over a reduced mamba2 gradient tree (the CPU
+    against itself: bit for bit), and its failure when the error-feedback
+    identity does not hold."""
+    from repro_torch.distributed import compression
+    from repro_torch.launch.steps import compute_grads
+    from repro_torch.models.transformer import build_model
+    model = build_model(get_config("mamba2-130m").reduced())
+    params = model.init(0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, size=(2, 33)))
+    _, grads = compute_grads(model, params, {"tokens": toks[:, :-1],
+                                             "targets": toks[:, 1:]})
+    cs.compression_gate(grads, torch.device("cpu"))
+    out = capsys.readouterr().out
+    assert "bit for bit in both steps True" in out and "] ok; payload" in out
+    from repro_torch.tree import tree_map
+    whole = compression.decompress_tree
+    monkeypatch.setattr(compression, "decompress_tree",
+                        lambda c: tree_map(lambda x: x * 1.001, whole(c)))
+    with pytest.raises(AssertionError, match="error-feedback"):
+        cs.compression_gate(grads, torch.device("cpu"))

@@ -27,7 +27,9 @@ assert "repro_torch.serving.engine" in names
 for name in ("models.layers", "models.moe", "launch.serve", "core.traffic", "core.metrics",
              "tree", "optim.adamw", "optim.adafactor", "optim.schedule",
              "data.pipeline", "checkpoint.manager",
-             "distributed.fault_tolerance", "launch.steps", "launch.train"):
+             "distributed.fault_tolerance", "launch.steps", "launch.train",
+             "distributed.sharding", "distributed.compression",
+             "launch.mesh"):
     assert "repro_torch." + name in names, name
 """
 

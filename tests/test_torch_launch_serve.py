@@ -142,6 +142,7 @@ def test_be_quanta_equal_straight_train_steps(monkeypatch):
 
     from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_optimizer, make_train_step
     from repro_torch.models.transformer import build_model
     from repro_torch.tree import tree_leaves
@@ -162,7 +163,8 @@ def test_be_quanta_equal_straight_train_steps(monkeypatch):
     model = build_model(get_config("qwen2.5-14b").reduced())
     params = model.init(4, device="cpu")
     state = make_optimizer(model.cfg).init(params)
-    step = make_train_step(model, ShapeConfig("be", 32, 2, "train"))
+    step = make_train_step(model, make_host_mesh(device="cpu"),
+                           ShapeConfig("be", 32, 2, "train")).fn
     ds = SyntheticLMDataset(DataConfig(model.cfg.vocab_size, 32, 2, seed=3))
     for i in range(k):
         batch = {n: torch.as_tensor(v, dtype=torch.long)

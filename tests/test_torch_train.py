@@ -32,12 +32,13 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs.base import ShapeConfig as JShapeConfig
-from repro.launch.mesh import make_host_mesh
+from repro.launch.mesh import make_host_mesh as jmake_host_mesh
 from repro.launch.steps import make_optimizer as jmake_optimizer
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.models.transformer import build_model as jbuild_model
 from repro.models.transformer import loss_fn as jloss_fn
 from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (compute_grads, make_optimizer,
                                       make_train_step)
 from repro_torch.launch.train import train
@@ -81,7 +82,7 @@ def models():
             jmodel = jbuild_model(jcfg)
             jparams = jmodel.init(jax.random.PRNGKey(0))
             jstep = jax.jit(jmake_train_step(
-                jmodel, make_host_mesh(),
+                jmodel, jmake_host_mesh(),
                 JShapeConfig("t", S, B, "train")).fn)
             cfg = dataclasses.replace(get_config(arch).reduced(),
                                       dtype=torch.float32,
@@ -124,8 +125,9 @@ def test_train_step_matches_reference(models, arch, optimizer):
     b = _batch(model.cfg.vocab_size, 2)
     jnew, jnew_state, jm = jstep(jparams, jstate, jax.tree.map(jnp.asarray,
                                                                 b))
-    new, new_state, m = make_train_step(model, ShapeConfig(
-        "t", S, B, "train"))(params, state, _tbatch(b))
+    new, new_state, m = make_train_step(model, make_host_mesh(device="cpu"),
+                                        ShapeConfig("t", S, B, "train")).fn(
+        params, state, _tbatch(b))
     assert m["loss"].dtype == m["grad_norm"].dtype == torch.float32
     assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_TOL
     assert abs(float(m["grad_norm"]) / float(jm["grad_norm"]) - 1) \
@@ -178,7 +180,8 @@ def test_use_pallas_training_raises(models):
     _, _, _, model, _ = models("mamba2-130m")
     pallas = build_model(dataclasses.replace(model.cfg, use_pallas=True))
     with pytest.raises(NotImplementedError, match="no backward"):
-        make_train_step(pallas)
+        make_train_step(pallas, make_host_mesh(device="cpu"),
+                        ShapeConfig("t", S, B, "train"))
 
 
 def test_train_reduces_loss_and_restarts_exactly(tmp_path):
@@ -204,6 +207,37 @@ def test_train_reduces_loss_and_restarts_exactly(tmp_path):
         assert torch.equal(a, b)
 
 
-def test_train_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        train("mamba2-130m", steps=1, model_parallel=2, device="cpu")
+def test_train_model_parallel_clamps_to_one_device():
+    """model_parallel=2 on one device: ``make_host_mesh`` clamps the model
+    axis to the one device, as the reference's does, and training on the
+    (1, 1) mesh gives model_parallel=1's losses exactly."""
+    assert make_host_mesh(2, device="cpu").shape == (1, 1)
+    kw = dict(steps=3, batch=2, seq=32, log_every=100, device="cpu")
+    one = train("mamba2-130m", model_parallel=1, **kw)
+    two = train("mamba2-130m", model_parallel=2, **kw)
+    assert two["losses"] == one["losses"]
+
+
+def test_host_mesh_counts_processes_not_cards(monkeypatch):
+    """One process on a host of four cards runs on one of them: its mesh
+    is (1, 1) whatever ``model_parallel`` asks; a process group of four
+    gives the four-device mesh, the model axis clamped to it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for mp in (1, 2, 8):
+        assert make_host_mesh(mp, device="cuda").shape == (1, 1)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 4)
+    assert make_host_mesh(1, device="cuda").shape == (4, 1)
+    assert make_host_mesh(2, device="cuda").shape == (2, 2)
+    assert make_host_mesh(8, device="cuda").shape == (1, 4)
+
+
+def test_train_model_parallel_raises(monkeypatch):
+    """A mesh of more than one process is refused: sharded training is
+    not ported, and the step would otherwise run whole on every rank."""
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="2 processes"):
+        train("mamba2-130m", steps=1, batch=2, seq=32, model_parallel=2,
+              device="cpu")

@@ -36,12 +36,13 @@ import torch
 
 from repro.configs import get_config as jget_config
 from repro.configs.base import ShapeConfig as JShapeConfig
-from repro.launch.mesh import make_host_mesh
+from repro.launch.mesh import make_host_mesh as jmake_host_mesh
 from repro.launch.steps import make_optimizer as jmake_optimizer
 from repro.launch.steps import make_train_step as jmake_train_step
 from repro.models.transformer import build_model as jbuild_model
 from repro.models.transformer import loss_fn as jloss_fn
 from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import (compute_grads, make_optimizer,
                                       make_train_step)
 from repro_torch.launch.train import train
@@ -97,7 +98,7 @@ def models():
             jmodel = jbuild_model(jcfg)
             jparams = jmodel.init(jax.random.PRNGKey(0))
             jstep = jax.jit(jmake_train_step(
-                jmodel, make_host_mesh(),
+                jmodel, jmake_host_mesh(),
                 JShapeConfig("t", S, B, "train")).fn)
             cfg = dataclasses.replace(get_config(arch).reduced(),
                                       dtype=torch.float32)
@@ -139,8 +140,9 @@ def test_train_step_matches_reference(models, arch):
     jnew, jnew_state, jm = jstep(jparams, jstate, jax.tree.map(jnp.asarray,
                                                                 b))
     with _routing(model.cfg):
-        new, new_state, m = make_train_step(model, ShapeConfig(
-            "t", S, B, "train"))(params, state, _tbatch(b))
+        new, new_state, m = make_train_step(
+            model, make_host_mesh(device="cpu"),
+            ShapeConfig("t", S, B, "train")).fn(params, state, _tbatch(b))
     assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_TOL
     assert abs(float(m["grad_norm"]) / float(jm["grad_norm"]) - 1) \
         <= GRAD_TOL[arch][1]
