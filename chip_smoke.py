@@ -75,8 +75,23 @@ Phases, each raising on failure:
      token equals the prompt's own B = 1 prefill's, and the layers are
      held from one input against the plain versions (bf16) and the
      torch-ops path (f32 activations); then ``ef_compress_tree`` over
-     phase 7's gradient tree on the card, bit for bit the CPU's.
-Phases 4, 5, 6, 7 (d), 8 (a), 8 (b) and 9 each zero the launch counts
+     phase 7's gradient tree on the card, bit for bit the CPU's;
+ 10. the co-location example at full width, observed by the telemetry hub:
+     qwen2.5-14b whole on its use_pallas path behind the ServingEngine
+     (capacity 4), driven by the serving driver's own loop (``drive``: 12
+     requests of 4 to 11 tokens at MAF2-like arrivals, 6 new tokens each),
+     beside a full-width mamba2-130m ``BestEffortTrainer`` (B = 8, S = 512,
+     torch ops) taking one step in each idle quantum; runs (a) alone, (b)
+     co-located, (c) co-located without a hub, (d) an outage, (e) an outage
+     with failover; the HP tokens of (a)-(c) equal, each hub's registry
+     equal to its engine's account (requests, latency count and sum, TTFT
+     count, sheds, retries, BE quanta, hedges), the exposition and the
+     JSONL round trips exact, (d) shedding and (e) recovering; every
+     prefill runs flash attention and every prefill and decode step the
+     three SwiGLU matmuls, held and timed at the prompt lengths 4 to 11;
+     then ``python -m repro_torch.colocate_serve_train --chaos --failover``
+     at the reduced width that ``serve`` runs.
+Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9 and 10 each zero the launch counts
 before their path and read them after; every entry point of the path must
 have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
 line before the last is the kernels' JSON summary, the last line ``{"ok":
@@ -163,6 +178,12 @@ DECODE_ROW_TOL = 1e-2
 # the error-feedback identity of the gradient compression, within the
 # reference's tolerance (tests/test_compression.py)
 EF_TOL = dict(rtol=1e-5, atol=1e-6)
+# phase 10: the co-location example's traffic (12 requests of 4 to 11
+# tokens, 6 new tokens each, MAF2-like arrivals at 50/s); the chaos runs'
+# request budget is max(OBS_TIMEOUT_FLOOR, 2 p99 of the run alone), the
+# outage 1.5 budgets, so only the outage's victims time out
+OBS_REQUESTS, OBS_NEW_TOKENS, OBS_PROMPTS = 12, 6, tuple(range(4, 12))
+OBS_TIMEOUT_FLOOR = 6.0
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -2436,6 +2457,304 @@ def compression_gate(grads, dev):
                              "identity fails")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the co-location example at full width, observed by the hub
+# ---------------------------------------------------------------------------
+
+
+def registry_samples(reg):
+    """Every sample of ``reg``'s counters, gauges and histograms read from
+    its own cells, keyed as ``parse_prometheus_text`` keys them."""
+    out = {}
+    for fam in reg.families():
+        for values, child in fam.items():
+            labels = tuple(zip(fam.labelnames, values))
+            if fam.kind in ("counter", "gauge"):
+                out[(fam.name, labels)] = child.v
+            elif fam.kind == "histogram":
+                for le, cum in child.bucket_pairs():
+                    s = "+Inf" if le == math.inf else repr(float(le))
+                    out[(f"{fam.name}_bucket", labels + (("le", s),))] = cum
+                out[(f"{fam.name}_sum", labels)] = child.sum
+                out[(f"{fam.name}_count", labels)] = child.count
+    return out
+
+
+def hub_gates(label, hub, eng, admissions, be_quanta):
+    """The registry is the engine's account: requests, latency histogram
+    (count, and its sum bit for bit the retire-order sum of the latencies),
+    TTFT count against the admissions, sheds, retries, BE quanta against
+    the engine's and the trainer's, hedges spawned at least won + lost;
+    the exposition reproduces every sample and survives a JSONL round trip
+    byte for byte (the Prometheus text less the families that have no
+    child); the histogram's p50 and p99 lie in the bucket of the
+    nearest-rank percentile (the sample at rank ceil(q n), which
+    ``Histogram.quantile``'s target q n lands on). Raises on any failure;
+    returns the exposition text."""
+    import bisect
+
+    from repro_torch.core.metrics import LatencyStats
+    from repro_torch.obs import (parse_prometheus_text, prometheus_text,
+                                 registry_from_jsonl, to_jsonl)
+    reg = hub.registry
+    text = prometheus_text(reg)
+    _, samples = parse_prometheus_text(text)
+    lat = reg.get("tally_serving_request_latency_seconds").child()
+    ttft = reg.get("tally_serving_ttft_seconds").child()
+    lat_sum = 0.0
+    for r in eng.done:
+        lat_sum += r.latency
+    sheds = sum(c.v for _, c in reg.get("tally_serving_sheds_total").items())
+    hedges = {k[0]: c.v
+              for k, c in reg.get("tally_serving_hedges_total").items()}
+    checks = {
+        "requests": (samples[("tally_serving_requests_total", ())],
+                     len(eng.done)),
+        "latency count": (lat.count, len(eng.done)),
+        "latency sum": (lat.sum, lat_sum),
+        "ttft count": (ttft.count, admissions),
+        "sheds": (sheds, len(eng.shed_requests)),
+        "retries": (samples[("tally_serving_retries_total", ())],
+                    sum(r.attempt for r in eng.done + eng.shed_requests)),
+        "be quanta": (samples[("tally_serving_be_quanta_total", ())],
+                      eng.be_quanta, be_quanta),
+    }
+    bad = {k: v for k, v in checks.items() if len(set(v)) != 1}
+    if hedges.get("spawned", 0.0) < hedges.get("won", 0.0) + hedges.get(
+            "lost", 0.0):
+        bad["hedges"] = hedges
+    if samples != registry_samples(reg):
+        bad["parse_prometheus_text"] = "samples differ from the registry"
+    # JSONL has a line per child, so a family without one (the simulator's
+    # families, a counter that never fired) comes back without its
+    # # HELP / # TYPE lines, in either package; every other line is exact
+    empty = {f.name for f in reg.families() if not len(f)}
+    kept = "".join(ln + "\n" for ln in text.splitlines()
+                   if not (ln.startswith("#") and ln.split()[2] in empty))
+    back = registry_from_jsonl(to_jsonl(reg))
+    if prometheus_text(back) != kept or to_jsonl(back) != to_jsonl(reg):
+        bad["jsonl round trip"] = "text differs"
+    stats = LatencyStats()
+    for r in eng.done:
+        stats.record(r.latency)
+    xs = sorted(stats.latencies)
+    quant = []
+    for q, exact in ((0.5, stats.p50()), (0.99, stats.p99())):
+        if not xs:
+            break
+        est = lat.quantile(q)
+        # the bucket that ``Histogram.observe`` puts that sample in, as a
+        # closed range (past the last bound: from it to +inf)
+        i = bisect.bisect_left(lat.les, xs[math.ceil(q * len(xs)) - 1])
+        lo = lat.les[i - 1] if i else 0.0
+        hi = lat.les[i] if i < len(lat.les) else math.inf
+        quant.append(f"p{q * 100:g} {est * 1e3:.1f} ms in [{lo:g}, {hi:g}] s"
+                     f" (LatencyStats {exact * 1e3:.1f} ms)")
+        if not lo <= est <= hi:
+            bad[f"p{q * 100:g} bucket"] = (est, lo, hi)
+    print(f"  ({label}) registry against the engine: "
+          + ", ".join(f"{k} {v[0]:g}" for k, v in checks.items())
+          + f", hedges {hedges}; {'; '.join(quant)}; exposition and JSONL "
+          f"round trips {'ok' if not bad else 'FAIL ' + repr(bad)}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"phase 10 ({label}): the registry is not the "
+                             f"engine's account: {bad}")
+    return text
+
+
+def colocated_obs_phase(cfg, mcfg, dev, max_len=1024, be_batch=TRAIN_BATCH,
+                        be_seq=TRAIN_SEQ, timeout_floor=OBS_TIMEOUT_FLOOR):
+    """Phase 10, the co-location example's scenario at full width: ``cfg``
+    on its use_pallas path behind ``ServingEngine(4, max_len)``,
+    driven by ``serve``'s own loop (``launch.serve.drive``: the MAF2-like
+    arrivals, the prompt draw, the outage) and observed by the port's
+    ``ObsHub``, beside a ``BestEffortTrainer`` of ``mcfg`` (torch ops)
+    taking one step in each idle quantum. Runs: (a) alone, (b) co-located,
+    (c) co-located with ``obs=None``, (d) chaos, (e) chaos with failover.
+    Returns the launch counts of (b) and the small-shape kernel rows."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.core.metrics import LatencyStats
+    from repro_torch.device import synchronize
+    from repro_torch.launch.serve import (BestEffortTrainer, drive,
+                                          failover_policies)
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.transformer import build_model
+    from repro_torch.obs import ObsHub
+    from repro_torch.serving import ServingConfig, ServingEngine
+    requests, new_tokens, capacity = OBS_REQUESTS, OBS_NEW_TOKENS, 4
+    t0 = time.monotonic()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(dataclasses.replace(cfg, use_pallas=True))
+    params = model.init(SEED, device=dev)
+    trainer = BestEffortTrainer(
+        build_model(dataclasses.replace(mcfg, use_pallas=False)),
+        batch=be_batch, seq=be_seq, seed=SEED, device=dev)
+    synchronize(dev)                    # the draws are asynchronous
+    print(f"  {cfg.name}: {cfg.num_layers} layers, "
+          f"{param_count_tree(params) / 1e9:.3f} B parameters "
+          f"({cfg.param_dtype}), ServingEngine(capacity={capacity}, "
+          f"max_len={max_len}); BE {mcfg.name} trainer "
+          f"{param_count_tree(trainer.params) / 1e6:.1f} M parameters, "
+          f"B={be_batch}, S={be_seq} (torch ops); set up in "
+          f"{time.monotonic() - t0:.1f} s", flush=True)
+    quantum_s = []
+
+    def be_quantum():
+        t = time.monotonic()
+        trainer()
+        synchronize(dev)
+        quantum_s.append(time.monotonic() - t)
+
+    def run(hub, colocated, timeout=None, chaos=False, failover=False,
+            stall_s=0.0):
+        retry = hedge = brownout = None
+        if failover:
+            retry, hedge, brownout = failover_policies(timeout, capacity)
+        eng = ServingEngine(
+            model, params, ServingConfig(capacity, max_len,
+                                         request_timeout=timeout),
+            best_effort_hook=be_quantum if colocated else None, obs=hub,
+            retry=retry, hedge=hedge, brownout=brownout)
+        n = {"prefills": 0, "decodes": 0}
+        prefill, decode = eng._prefill, eng._decode
+
+        def counted(key, fn):
+            def call(*a):
+                n[key] += 1
+                return fn(*a)
+            return call
+
+        eng._prefill = counted("prefills", prefill)
+        eng._decode = counted("decodes", decode)
+        q0, s0 = trainer.quanta, len(quantum_s)
+        synchronize(dev)
+        wall = drive(eng, cfg.vocab_size, requests=requests,
+                     max_new_tokens=new_tokens, seed=SEED, chaos=chaos,
+                     stall_s=stall_s)
+        synchronize(dev)
+        return dict(eng=eng, hub=hub, wall=wall, quanta=trainer.quanta - q0,
+                    quantum_s=quantum_s[s0:], **n)
+
+    # warm-up, not counted: a bare engine and one train step
+    serve(model, params, [np.arange(4, dtype=np.int32)] * 2,
+          ServingConfig(capacity, max_len), 2)
+    be_quantum()
+    quantum_s.clear()
+
+    runs = {"a": run(ObsHub(), False)}
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    runs["b"] = run(ObsHub(), True)
+    counts = {k: v for fam in kernels.FAMILIES
+              for k, v in fam.launches.items()}
+    runs["c"] = run(None, True)
+    alone = LatencyStats()
+    for r in runs["a"]["eng"].done:
+        alone.record(r.latency)
+    timeout = max(timeout_floor, 2.0 * alone.p99())
+    stall_s = 1.5 * timeout
+    runs["d"] = run(ObsHub(), True, timeout, chaos=True, stall_s=stall_s)
+    runs["e"] = run(ObsHub(), True, timeout, chaos=True, failover=True,
+                    stall_s=stall_s)
+
+    # -- gates ----------------------------------------------------------------
+    def answers(key):
+        done = sorted(runs[key]["eng"].done, key=lambda r: r.rid)
+        return [r.tokens for r in done]
+
+    toks = {k: answers(k) for k in "abc"}
+    ok_tok = (toks["a"] == toks["b"] == toks["c"]
+              and len(toks["a"]) == requests
+              and all(len(t) == new_tokens and all(
+                  0 <= x < cfg.vocab_size for x in t) for t in toks["a"]))
+    print(f"  (a)/(b)/(c) HP tokens equal request by request (rid order): "
+          f"{sum(a == b == c for a, b, c in zip(*toks.values()))}/{requests}"
+          f" {'ok' if ok_tok else 'FAIL'}", flush=True)
+    if not ok_tok:
+        raise AssertionError("phase 10: the hub or the BE job changed the "
+                             "HP answers")
+    texts = {k: hub_gates(k, runs[k]["hub"], runs[k]["eng"],
+                          runs[k]["prefills"], runs[k]["quanta"])
+             for k in "abde"}
+    for k in "abcde":
+        r = runs[k]
+        eng = r["eng"]
+        print(f"  ({k}) {len(eng.done)} answered, {len(eng.shed_requests)} "
+              f"shed, {sum(q.attempt for q in eng.done + eng.shed_requests)}"
+              f" retries, {r['prefills']} prefills, {r['decodes']} decode "
+              f"steps, {r['quanta']} BE quanta, wall {r['wall']:.3f} s",
+              flush=True)
+    if not runs["b"]["quanta"] > 0:
+        raise AssertionError("phase 10 (b): the BE trainer took no quantum")
+    for k in "ab":
+        done = runs[k]["eng"].done
+        ttft = [r.ttft for r in done]
+        lat = [r.latency for r in done]
+        print(f"  HP ({k}) {'alone' if k == 'a' else 'co-located'}: TTFT "
+              f"p50 {pct(ttft, 50):.1f} ms, p99 {pct(ttft, 99):.1f} ms; "
+              f"latency p50 {pct(lat, 50):.1f} ms, p99 {pct(lat, 99):.1f} ms",
+              flush=True)
+    bq = runs["b"]["quantum_s"]
+    coloc = LatencyStats()
+    for r in runs["b"]["eng"].done:
+        coloc.record(r.latency)
+    hub_ms = (runs["b"]["wall"] - runs["c"]["wall"]) * 1e3
+    print(f"  LatencyStats(b).overhead_vs(p99 of (a)) = "
+          f"{coloc.overhead_vs(alone.p99()):+.4f} (the paper's headline "
+          f"ratio from one run of {requests} requests, host noise; a "
+          f"latency runs from the submit, and the driver submits an arrival "
+          f"only after the quantum in progress, so the wait behind a BE "
+          f"quantum is not in it: a reading, not a claim); (b)'s BE quanta "
+          f"{[round(q * 1e3, 1) for q in bq]} ms, longest "
+          f"{max(bq, default=0.0) * 1e3:.1f} ms; the hub's overhead, (b) - "
+          f"(c) wall: {hub_ms:+.1f} ms (a reading, not a gate)", flush=True)
+    print("  (b) as the example prints it:")
+    for ln in texts["b"].splitlines():
+        if ln.startswith("tally_serving") and (
+                "_count" in ln or "_total" in ln or "slots" in ln):
+            print(f"    {ln}")
+    d, e = runs["d"]["eng"], runs["e"]["eng"]
+    e_retries = sum(r.attempt for r in e.done + e.shed_requests)
+    ok_chaos = (len(d.shed_requests) >= 1 and not e.shed_requests
+                and len(e.done) == requests and e_retries >= 1)
+    print(f"  chaos, request budget {timeout:.3f} s (max({timeout_floor:g}, "
+          f"2 p99 of (a))), outage {stall_s:.3f} s: (d) {len(d.shed_requests)}"
+          f" shed [>= 1]; (e) {len(e.shed_requests)} shed [== 0], "
+          f"{len(e.done)}/{requests} answered, {e_retries} retries [>= 1] "
+          f"{'ok' if ok_chaos else 'FAIL'}", flush=True)
+    if not ok_chaos:
+        raise AssertionError("phase 10: the outage did not shed without "
+                             "failover, or failover did not recover")
+    if dev.type == "cuda":
+        print(f"  peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+
+    print("  the kernels at the prompt lengths of the example (plain form, "
+          "as served):", flush=True)
+    rng = np.random.default_rng(SEED + 6)
+    cases = {**mm_serve_cases(cfg, dev, OBS_PROMPTS, rng),
+             **flash_serve_cases(cfg, dev, OBS_PROMPTS, rng,
+                                 label="flash_obs")}
+    rows = time_cases(cases, REPS, cfg.num_heads, plain_only=tuple(cases))
+
+    print(f"  launches on the observed co-located path (b): "
+          f"{json.dumps(counts)}")
+    print(f"  phase 10 in {time.monotonic() - t0:.1f} s", flush=True)
+    cuda_core_guard(counts, "observed co-located path")
+    L, b = cfg.num_layers, runs["b"]
+    need = {"flash_plain": L * b["prefills"],
+            "matmul_plain": 3 * L * (b["prefills"] + b["decodes"])}
+    short = {k: (counts[k], v) for k, v in need.items() if counts[k] < v}
+    if short:
+        raise AssertionError(f"entry points launched fewer times than the "
+                             f"observed co-located path needs (launched, "
+                             f"needed): {short}")
+    return counts, rows
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -2583,6 +2902,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     compression_gate(grads, dev)
     print(f"  phase 9 in {time.monotonic() - t9:.1f} s", flush=True)
+    # phase 10 holds 55 GiB of parameters: free what phase 9 left
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[10] the co-location example at full width: qwen2.5-14b served "
+          "beside a mamba2-130m trainer, observed by the telemetry hub, "
+          "with chaos and failover", flush=True)
+    o_counts, o_rows = colocated_obs_phase(cfg, mcfg, dev)
+    print("  example prompt shapes: " + json.dumps(
+        {label: r for (label, _), r in o_rows.items()}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.colocate_serve_train import colocate_serve_train
+    out, _ = colocate_serve_train(chaos=True, failover=True)
+    print(f"  python -m repro_torch.colocate_serve_train --chaos --failover "
+          f"(reduced width): {json.dumps(out)}", flush=True)
+    if (out["requests"] != OBS_REQUESTS or out["shed"]
+            or out["retries"] < 1 or out["device"] != "cuda:0"):
+        raise AssertionError("the co-location example did not answer every "
+                             "request on the card through its retries")
 
     summary = []
     for fam, label, shape, route in lines:
@@ -2595,7 +2934,8 @@ def main() -> int:
                        "colocated": c_counts[name],
                        "moe_serving": q_counts[name],
                        "whisper": w_counts[name],
-                       "deepseek_steps": s_counts[name]}
+                       "deepseek_steps": s_counts[name],
+                       "colocated_obs": o_counts[name]}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,

@@ -24,7 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,6 +70,54 @@ class BestEffortTrainer:
         self.quanta += 1
 
 
+def failover_policies(timeout: float, capacity: int
+                      ) -> Tuple[RetryPolicy, HedgePolicy, BrownoutPolicy]:
+    """``serve``'s client-side failover stack for a request budget of
+    ``timeout`` seconds on an engine of ``capacity`` slots."""
+    # thresholds scale off the request budget: retries re-arm fast,
+    # hedges fire at half a budget of queue wait, brownout only under
+    # pressure far beyond one budget (it sheds terminally)
+    return (RetryPolicy(max_retries=3, backoff_base=0.1, backoff_factor=2.0,
+                        jitter=0.25),
+            HedgePolicy(min_delay=timeout / 2),
+            BrownoutPolicy(queue_delay=3.0 * timeout,
+                           min_capacity=max(1, capacity // 2),
+                           exit_delay=1.5 * timeout))
+
+
+def drive(engine: ServingEngine, vocab_size: int, *, requests: int,
+          max_new_tokens: int, seed: int = 0, mean_rate: float = 50.0,
+          chaos: bool = False, stall_s: float = 8.0) -> float:
+    """``serve``'s request loop: ``requests`` prompts of 4 to 11 tokens
+    drawn from ``seed``, submitted to ``engine`` at the arrivals of a
+    MAF2-like trace, the engine stepped until it is idle (with ``chaos``,
+    dark for ``stall_s`` seconds once half the requests are in). Returns
+    the wall seconds."""
+    rng = np.random.default_rng(seed)
+    trace = maf2_like_trace(duration=requests / mean_rate * 2,
+                            mean_rate=mean_rate, seed=seed)
+    arrivals = trace.arrivals[:requests]
+    t0 = time.monotonic()
+    submitted = 0
+    stall_after = len(arrivals) // 2 if chaos else None
+    while submitted < len(arrivals) or engine.queue or engine.n_active:
+        now = time.monotonic() - t0
+        while submitted < len(arrivals) and arrivals[submitted] <= now:
+            prompt = rng.integers(0, vocab_size,
+                                  size=int(rng.integers(4, 12)))
+            engine.submit(prompt.astype(np.int32),
+                          max_new_tokens=max_new_tokens)
+            submitted += 1
+        if stall_after is not None and submitted >= stall_after:
+            # injected outage: the engine goes dark mid-run; everything
+            # queued/in-flight blows its per-request timeout
+            stall_after = None
+            time.sleep(stall_s)
+        if not engine.step():
+            time.sleep(0.001)
+    return time.monotonic() - t0
+
+
 def serve(arch: str, *, requests: int = 16, capacity: int = 4,
           max_len: int = 96, max_new_tokens: int = 8,
           colocate_train: bool = False, seed: int = 0,
@@ -91,43 +139,16 @@ def serve(arch: str, *, requests: int = 16, capacity: int = 4,
         timeout = 6.0
     retry = hedge = brownout = None
     if failover and timeout is not None:
-        # thresholds scale off the request budget: retries re-arm fast,
-        # hedges fire at half a budget of queue wait, brownout only under
-        # pressure far beyond one budget (it sheds terminally)
-        retry = RetryPolicy(max_retries=3, backoff_base=0.1,
-                            backoff_factor=2.0, jitter=0.25)
-        hedge = HedgePolicy(min_delay=timeout / 2)
-        brownout = BrownoutPolicy(queue_delay=3.0 * timeout,
-                                  min_capacity=max(1, capacity // 2),
-                                  exit_delay=1.5 * timeout)
+        retry, hedge, brownout = failover_policies(timeout, capacity)
     engine = ServingEngine(model, params,
                            ServingConfig(capacity, max_len,
                                          request_timeout=timeout),
                            best_effort_hook=be, obs=obs, retry=retry,
                            hedge=hedge, brownout=brownout)
-    rng = np.random.default_rng(seed)
-    trace = maf2_like_trace(duration=requests / mean_rate * 2,
-                            mean_rate=mean_rate, seed=seed)
-    arrivals = trace.arrivals[:requests]
-    t0 = time.monotonic()
-    submitted = 0
-    stall_after = len(arrivals) // 2 if chaos else None
+    wall = drive(engine, cfg.vocab_size, requests=requests,
+                 max_new_tokens=max_new_tokens, seed=seed,
+                 mean_rate=mean_rate, chaos=chaos, stall_s=stall_s)
     lat = LatencyStats()
-    while submitted < len(arrivals) or engine.queue or engine.n_active:
-        now = time.monotonic() - t0
-        while submitted < len(arrivals) and arrivals[submitted] <= now:
-            prompt = rng.integers(0, cfg.vocab_size,
-                                  size=int(rng.integers(4, 12)))
-            engine.submit(prompt.astype(np.int32),
-                          max_new_tokens=max_new_tokens)
-            submitted += 1
-        if stall_after is not None and submitted >= stall_after:
-            # injected outage: the engine goes dark mid-run; everything
-            # queued/in-flight blows its per-request timeout
-            stall_after = None
-            time.sleep(stall_s)
-        if not engine.step():
-            time.sleep(0.001)
     for r in engine.done:
         lat.record(r.latency)
     return {
@@ -139,7 +160,7 @@ def serve(arch: str, *, requests: int = 16, capacity: int = 4,
         "p50_ms": lat.p50() * 1e3,
         "p99_ms": lat.p99() * 1e3,
         "be_quanta": 0 if be is None else be.quanta,
-        "wall_s": time.monotonic() - t0,
+        "wall_s": wall,
         "device": str(params["embed"].device),
     }
 

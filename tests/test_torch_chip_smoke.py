@@ -483,3 +483,56 @@ def test_compression_gate_on_cpu(capsys, monkeypatch):
                         lambda c: tree_map(lambda x: x * 1.001, whole(c)))
     with pytest.raises(AssertionError, match="error-feedback"):
         cs.compression_gate(grads, torch.device("cpu"))
+
+
+def test_colocated_obs_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 10 at reduced qwen2.5-14b and mamba2-130m width: the HP
+    tokens equal alone, co-located and co-located without a hub; each
+    hub's registry the engine's account, its exposition and JSONL round
+    trips exact; the outage shedding without failover and recovered with
+    it (a 2 s request budget: the CPU's p99 is far under a second); the
+    kernels held against their plain versions at the prompt lengths 4 to
+    11; and the launch-count guard firing because the plain versions
+    launch nothing."""
+    with pytest.raises(AssertionError, match="observed co-located path "
+                                             "needs") as e:
+        cs.colocated_obs_phase(get_config("qwen2.5-14b").reduced(),
+                               get_config("mamba2-130m").reduced(),
+                               torch.device("cpu"), max_len=48, be_batch=2,
+                               be_seq=32, timeout_floor=2.0)
+    assert "'flash_plain': (0, " in str(e.value)
+    out = capsys.readouterr().out
+    assert "HP tokens equal request by request (rid order): 12/12 ok" in out
+    gated = [ln for ln in out.splitlines() if "registry against the engine"
+             in ln]
+    assert [ln.split(")")[0].strip() for ln in gated] == [
+        "(a", "(b", "(d", "(e"]
+    assert all("round trips ok" in ln for ln in gated), gated
+    assert re.search(r"\(d\) \d+ shed \[>= 1\]; \(e\) 0 shed \[== 0\], "
+                     r"12/12 answered, \d+ retries \[>= 1\] ok", out)
+    assert re.search(r"\(b\) 12 answered, 0 shed, 0 retries, 12 prefills, "
+                     r"\d+ decode steps, [1-9]\d* BE quanta", out)
+    assert "overhead_vs(p99 of (a))" in out
+    assert "    tally_serving_requests_total 12.0" in out
+    for M in cs.OBS_PROMPTS:
+        for label in (f"mm_serve_up_m{M}", f"mm_serve_down_m{M}",
+                      f"flash_obs_s{M}"):
+            assert f"{label} plain: max_abs=0.000e+00" in out, label
+
+
+def test_hub_gates_fail_when_the_registry_disagrees():
+    """A hub that missed one retirement is not the engine's account."""
+    from repro_torch.obs import ObsHub
+    from repro_torch.serving import ServingConfig, ServingEngine
+    from repro_torch.models.transformer import build_model
+    model = build_model(get_config("qwen2.5-14b").reduced())
+    params = model.init(0, device="cpu")
+    hub = ObsHub()
+    eng = ServingEngine(model, params, ServingConfig(2, 32), obs=hub)
+    for n in (4, 5):
+        eng.submit(np.arange(n, dtype=np.int32), max_new_tokens=2)
+    eng.run_until_idle()
+    cs.hub_gates("ok", hub, eng, 2, 0)
+    hub.serving().retired(0.5)
+    with pytest.raises(AssertionError, match="'requests'"):
+        cs.hub_gates("bad", hub, eng, 2, 0)

@@ -47,6 +47,19 @@ def test_payload_reduction():
     assert payload_bytes(c) == 1024 * 256 + 1024 * 4
 
 
+def test_payload_bytes_of_compressed_tree_fails_in_reference():
+    """The reference's ``payload_bytes`` sums ``leaf.size`` over
+    ``jax.tree.leaves``: a ``Compressed`` leaf's ``shape`` tuple yields plain
+    ints, so it raises (ROADMAP Queue 3); the port counts q and the f32
+    scales, not the shape."""
+    x = np.random.default_rng(0).normal(size=(1024, 256)).astype(np.float32)
+    with pytest.raises(AttributeError, match="'int' object has no "
+                                             "attribute 'size'"):
+        jc.payload_bytes(jc.compress(jnp.asarray(x)))
+    assert payload_bytes(compress(torch.from_numpy(x))) \
+        == 1024 * 256 + 1024 * 4
+
+
 def test_error_feedback_accumulates_residual():
     """EF invariant: decompress(c) + new_residual == grads + old_residual."""
     rng = np.random.default_rng(0)

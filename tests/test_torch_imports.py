@@ -29,7 +29,9 @@ for name in ("models.layers", "models.moe", "launch.serve", "core.traffic", "cor
              "data.pipeline", "checkpoint.manager",
              "distributed.fault_tolerance", "launch.steps", "launch.train",
              "distributed.sharding", "distributed.compression",
-             "launch.mesh"):
+             "launch.mesh", "obs", "obs.registry", "obs.selfprof",
+             "obs.audit", "obs.probes", "obs.expose",
+             "colocate_serve_train"):
     assert "repro_torch." + name in names, name
 """
 
