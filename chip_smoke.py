@@ -90,7 +90,16 @@ Phases, each raising on failure:
      prefill runs flash attention and every prefill and decode step the
      three SwiGLU matmuls, held and timed at the prompt lengths 4 to 11;
      then ``python -m repro_torch.colocate_serve_train --chaos --failover``
-     at the reduced width that ``serve`` runs.
+     at the reduced width that ``serve`` runs;
+ 11. the dry run (``repro_torch.launch.dryrun``, a cost model on meta
+     tensors, no launches): (a) one cell per family on the (16, 16) and
+     (2, 16, 16) meshes, with every cell that ``shape_applicable`` skips,
+     each status as it says, and a cell re-meshed by the elastic plan; (b)
+     phase 9's prefill and decode steps priced on the one-card mesh: the
+     predicted argument bytes equal to the bytes phase 9 passed,
+     ``fits_hbm`` true for both and false for a train step with f32
+     masters, the predicted roofline terms and peak against phase 9's
+     device ms and peaks.
 Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9 and 10 each zero the launch counts
 before their path and read them after; every entry point of the path must
 have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
@@ -184,6 +193,17 @@ EF_TOL = dict(rtol=1e-5, atol=1e-6)
 # outage 1.5 budgets, so only the outage's victims time out
 OBS_REQUESTS, OBS_NEW_TOKENS, OBS_PROMPTS = 12, 6, tuple(range(4, 12))
 OBS_TIMEOUT_FLOOR = 6.0
+# phase 11: the dry run's cells, one shape per family on both production
+# meshes (the whole sweep, some 3 min on a CPU, is the CLI's: ``python -m
+# repro_torch.launch.dryrun --all --mesh both``), and a deepseek-coder-33b
+# train step with f32 masters on one card, which cannot fit (124.2 GiB of
+# parameters alone)
+DRYRUN_CELLS = (("qwen2.5-14b", "decode_32k"),
+                ("qwen3-moe-30b-a3b", "train_4k"),
+                ("mamba2-130m", "long_500k"),
+                ("jamba-1.5-large-398b", "decode_32k"),
+                ("whisper-base", "prefill_32k"),
+                ("qwen2-vl-7b", "train_4k"))
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
@@ -980,13 +1000,14 @@ def traced_as(owner, name: str):
         setattr(owner, name, fn)
 
 
-def profile_once(label, fn, dev, span=None) -> None:
+def profile_once(label, fn, dev, span=None):
     """``fn`` timed on the host clock (after one warm-up call) and traced
     by torch.profiler: device-busy time (the kernels' summed self time),
     idle share and the top kernels; with ``span``, the device time of the
     kernels launched inside the profiler ranges of that name
     (``traced_as``) and their share of the busy time, from the same trace.
-    The profiler's own host cost inflates the traced wall time."""
+    The profiler's own host cost inflates the traced wall time. Returns
+    the device-busy ms, or None where the trace saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.device import synchronize
@@ -1013,7 +1034,7 @@ def profile_once(label, fn, dev, span=None) -> None:
     if not rows:
         print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
               "(the profiler saw no device activity)")
-        return
+        return None
     within = ""
     if span is not None:
         # a host range's device time is its launched kernels' time
@@ -1025,6 +1046,7 @@ def profile_once(label, fn, dev, span=None) -> None:
           f"{1 - busy / (traced * 1e3):.1%}; top by device time:")
     for ms, count, key in rows[:6]:
         print(f"    {ms:8.3f} ms  {count:5d}x  {key[:70]}")
+    return busy
 
 
 # ---------------------------------------------------------------------------
@@ -2163,6 +2185,25 @@ def rehearse_phase8():
 # ---------------------------------------------------------------------------
 
 
+def tensor_bytes(tree) -> int:
+    """The bytes of every tensor in ``tree`` (a step's arguments)."""
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def step_peak(fn, dev):
+    """The peak device memory of one call of ``fn`` (what was resident
+    before it included), or None off the card."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    fn()
+    torch.cuda.synchronize(dev)
+    return torch.cuda.max_memory_allocated(dev)
+
+
 def decode_cache_gate(prefill_cache, decoded, prompt: int) -> None:
     """The first decode step's cache against the prefill's: every k/v row
     below ``prompt`` passed through bit for bit, row ``prompt`` written
@@ -2224,7 +2265,11 @@ def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
     (PLAIN_LAYERS layers, PLAIN_TOL) and, with f32 activations on the same
     bf16 weights, the kernel path against the torch-ops path (every layer,
     MODEL_TOL_F32). Returns the launch counts of the prefill and decode
-    steps and the kernel rows."""
+    steps, the kernel rows and what the phase measured for the dry run
+    (phase 11): the bytes of the tensors passed to each step (``*_bytes``),
+    each step's device-busy ms in its trace (``*_device_ms``), the peak
+    device memory of one call of each (``*_peak``; the weights resident)
+    and of the phase (``phase_peak``), None where not measured."""
     import dataclasses
     from repro_torch import kernels
     from repro_torch.configs import ShapeConfig, kv_cache_specs
@@ -2291,12 +2336,16 @@ def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
     prefill_s = time.monotonic() - t
     out = [logits[:, -1].argmax(dim=-1)]
     kv = pad_cache(cache, capacity)
+    measured = {"prefill_bytes": tensor_bytes((params, {"tokens": toks}))}
     step_s, first = [], None
     for i in range(steps):
         t = time.monotonic()
-        logits_d, kv = dec.fn(params, {
-            "tokens": out[-1][:, None].to(torch.int32), "cache": kv,
-            "cache_index": torch.tensor(prompt + i, dtype=torch.int32)})
+        dbatch = {"tokens": out[-1][:, None].to(torch.int32), "cache": kv,
+                  "cache_index": torch.tensor(prompt + i, dtype=torch.int32)}
+        if i == 0:
+            measured["decode_bytes"] = tensor_bytes((params, dbatch))
+        logits_d, kv = dec.fn(params, dbatch)
+        del dbatch
         out.append(logits_d[:, -1].argmax(dim=-1))
         synchronize(dev)
         step_s.append(time.monotonic() - t)
@@ -2309,10 +2358,11 @@ def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
           f"{batch * steps / sum(step_s):.1f} tokens/s "
           f"({sum(step_s) / steps * 1e3:.2f} ms a step); greedy tokens "
           f"{tokens.tolist()}", flush=True)
+    measured["phase_peak"] = None
     if dev.type == "cuda":
-        print(f"  peak device memory "
-              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB",
-              flush=True)
+        measured["phase_peak"] = torch.cuda.max_memory_allocated(dev)
+        print(f"  peak device memory {measured['phase_peak'] / 2 ** 30:.2f} "
+              f"GiB", flush=True)
 
     # -- checks ---------------------------------------------------------------
     if not (torch.isfinite(logits).all() and torch.isfinite(logits_d).all()
@@ -2372,14 +2422,19 @@ def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
                              "torch-ops path")
 
     batch_in = {"tokens": toks}
-    profile_once(f"prefill step, {batch} x {prompt} tokens",
-                 lambda: pre.fn(params, batch_in), dev)
+    measured["prefill_device_ms"] = profile_once(
+        f"prefill step, {batch} x {prompt} tokens",
+        lambda: pre.fn(params, batch_in), dev)
+    measured["prefill_peak"] = step_peak(lambda: pre.fn(params, batch_in),
+                                         dev)
     dkv = {k: torch.zeros(s, dtype=d, device=dev)
            for k, (s, d) in kv_cache_specs(cfg, batch, capacity).items()}
     dbatch = {"tokens": toks[:, :1], "cache": dkv,
               "cache_index": torch.tensor(prompt, dtype=torch.int32)}
-    profile_once(f"decode step, {batch} sequences, cache of {capacity}",
-                 lambda: dec.fn(params, dbatch), dev)
+    measured["decode_device_ms"] = profile_once(
+        f"decode step, {batch} sequences, cache of {capacity}",
+        lambda: dec.fn(params, dbatch), dev)
+    measured["decode_peak"] = step_peak(lambda: dec.fn(params, dbatch), dev)
     del dkv, dbatch
     print("  the kernels at the steps' shapes (plain form, as run):",
           flush=True)
@@ -2397,7 +2452,7 @@ def steps_phase(cfg, dev, batch=STEPS_BATCH, prompt=STEPS_PROMPT,
         raise AssertionError(f"the serving steps' launches "
                              f"{ {k: counts[k] for k in need} } are not one "
                              f"prefill's and {steps} decode steps' {need}")
-    return counts, rows
+    return counts, rows, measured
 
 
 def compression_gate(grads, dev):
@@ -2755,6 +2810,104 @@ def colocated_obs_phase(cfg, mcfg, dev, max_len=1024, be_batch=TRAIN_BATCH,
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the dry run, checked against what phase 9 measured
+# ---------------------------------------------------------------------------
+
+
+def dryrun_phase(cfg, measured, card, dev, batch=STEPS_BATCH,
+                 prompt=STEPS_PROMPT, capacity=STEPS_CAPACITY,
+                 cells=DRYRUN_CELLS):
+    """Phase 11, ``repro_torch.launch.dryrun`` (a cost model on meta
+    tensors: no kernel launches, no device memory). (a) ``cells`` on both
+    production meshes, with every cell that ``shape_applicable`` skips:
+    each status ``ok`` or ``skip`` exactly where it says so, one line a
+    cell; then a (16, 16) mesh re-meshed by the elastic plan after one
+    lost host of 64, priced. (b) ``cfg`` on the one-card mesh of phase 9,
+    the prefill step of ``batch`` x ``prompt`` and the decode step at
+    ``capacity``, bf16 serving weights: the predicted argument bytes equal
+    the bytes that phase 9 passed (``measured``), exactly; ``fits_hbm``
+    true for both and false for a train step with f32 masters; the
+    predicted compute and memory terms and peak against phase 9's device
+    ms and peaks, each beside ``card``. Returns the cells of (b)."""
+    from repro_torch.configs import (SHAPES, ShapeConfig, all_arch_names,
+                                     get_config, shape_applicable)
+    from repro_torch.distributed.fault_tolerance import plan_elastic_remesh
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.monotonic()
+    skips = [(a, n) for a in all_arch_names() for n, sh in SHAPES.items()
+             if not shape_applicable(get_config(a), sh)[0]]
+    bad = []
+    for arch, name in list(cells) + skips:
+        for multi in (False, True):
+            cell = dryrun.run_cell(arch, name, multi)
+            want = ("ok" if shape_applicable(get_config(arch),
+                                             SHAPES[name])[0] else "skip")
+            print(f"  {arch} x {name} x {cell['mesh']}: "
+                  f"{dryrun.cell_line(cell)}", flush=True)
+            if cell["status"] != want:
+                bad.append((arch, name, cell["mesh"], cell["status"]))
+    plan = plan_elastic_remesh((16, 16), ("data", "model"), list(range(64)),
+                               [3], devices_per_host=4, global_batch=256)
+    cell = dryrun.remesh_cell("qwen2.5-14b", "train_4k", plan)
+    print(f"  qwen2.5-14b x train_4k re-meshed to {plan.new_mesh_shape}, "
+          f"batch {plan.new_global_batch}: {dryrun.cell_line(cell)}",
+          flush=True)
+    if cell["status"] != "ok":
+        bad.append(("qwen2.5-14b", "train_4k", "remesh", cell["status"]))
+    print(f"  {2 * (len(cells) + len(skips)) + 1} cells in "
+          f"{time.monotonic() - t0:.1f} s (host clock)", flush=True)
+    if bad:
+        raise AssertionError(f"dry-run cells whose status is not "
+                             f"shape_applicable's: {bad}")
+
+    mesh = make_host_mesh(device=dev)
+    shapes = {"prefill": ShapeConfig("prefill", prompt, batch, "prefill"),
+              "decode": ShapeConfig("decode", capacity, batch, "decode"),
+              "train": ShapeConfig("train", prompt, batch, "train")}
+    got = {k: dryrun.price(cfg, sh, mesh) for k, sh in shapes.items()}
+    ok = True
+    for k in ("prefill", "decode"):
+        c = got[k]
+        args, passed = c["memory"]["argument_size_in_bytes"], measured[
+            f"{k}_bytes"]
+        r = c["roofline"]
+        bound = max(r["compute_s"], r["memory_s"]) * 1e3
+        dev_ms = measured[f"{k}_device_ms"]
+        share = (f"{bound / dev_ms:.1%} of the measured {dev_ms:.3f} ms"
+                 if dev_ms else "device ms not measured")
+        mem = c["memory"]
+        eager = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                 + mem["output_size_in_bytes"])
+        peak = measured[f"{k}_peak"]
+        peak_s = (f"measured {peak / 2 ** 30:.2f} GiB (the phase's "
+                  f"{measured['phase_peak'] / 2 ** 30:.2f})" if peak
+                  else "peak not measured")
+        print(f"  {cfg.name} {k} step on {mesh.shape}, {card}: arguments "
+              f"predicted {args} B, passed {passed} B, equal "
+              f"{args == passed}; compute {r['compute_s'] * 1e3:.3f} ms, "
+              f"memory {r['memory_s'] * 1e3:.3f} ms ({r['dominant']}): the "
+              f"bound {bound:.3f} ms is {share}; peak predicted "
+              f"{c['per_device_hbm_bytes'] / 2 ** 30:.2f} GiB (temporaries "
+              f"{mem['temp_size_in_bytes'] / 2 ** 30:.2f}; without the "
+              f"donated inputs' reuse, which eager torch does not do, "
+              f"{eager / 2 ** 30:.2f}), {peak_s}; fits {c['fits_hbm']}",
+              flush=True)
+        ok &= args == passed and c["fits_hbm"]
+    t = got["train"]
+    print(f"  {cfg.name} train step (f32 masters, AdamW) on {mesh.shape}: "
+          f"{t['per_device_hbm_bytes'] / 2 ** 30:.1f} GiB predicted, "
+          f"arguments {t['memory']['argument_size_in_bytes'] / 2 ** 30:.1f} "
+          f"GiB; fits {t['fits_hbm']}", flush=True)
+    ok &= not t["fits_hbm"]
+    if not ok:
+        raise AssertionError("the dry run's one-card cells: the predicted "
+                             "arguments are not what the steps were passed, "
+                             "or fits_hbm is wrong")
+    return got
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -2895,7 +3048,8 @@ def main() -> int:
           "make_prefill_step and make_decode_step; gradient compression",
           flush=True)
     t9 = time.monotonic()
-    s_counts, s_rows = steps_phase(get_config("deepseek-coder-33b"), dev)
+    s_counts, s_rows, s_measured = steps_phase(
+        get_config("deepseek-coder-33b"), dev)
     print("  serving-step shapes: " + json.dumps(
         {label: r for (label, _), r in s_rows.items()}))
     gc.collect()
@@ -2922,6 +3076,13 @@ def main() -> int:
             or out["retries"] < 1 or out["device"] != "cuda:0"):
         raise AssertionError("the co-location example did not answer every "
                              "request on the card through its retries")
+
+    print("[11] the dry run: every family's cell priced at H100 rates on "
+          "the production meshes; phase 9's cells against the card",
+          flush=True)
+    t11 = time.monotonic()
+    dryrun_phase(get_config("deepseek-coder-33b"), s_measured, card, dev)
+    print(f"  phase 11 in {time.monotonic() - t11:.1f} s", flush=True)
 
     summary = []
     for fam, label, shape, route in lines:

@@ -9,8 +9,9 @@ bf16, and ``cuda-fma``, CUDA cores, for f32); ``check`` refuses a launch
 that no route takes. For tensors on the CPU a form runs its plain version,
 which walks the same grid cells tile by tile through the descriptor's
 ``body``; for CUDA tensors it launches the route's kernel, on PyTorch's
-current stream, or raises. There is no fallback from one to the other, and
-a route never changes on an error.
+current stream, or raises. A plain launch on meta tensors (the dry run's
+shapes) runs ``check`` and nothing else. There is no fallback from one to
+the other, and a route never changes on an error.
 """
 from __future__ import annotations
 
@@ -74,6 +75,9 @@ class TileKernel:
 
     # -- the three launch forms ----------------------------------------------
     def plain(self, desc: KernelDescriptor, args, outs) -> None:
+        if all(t.is_meta for t in (*args, *outs)):
+            # shapes only (the dry run): nothing to launch or count
+            return self.check(desc, args, outs)
         if self._on_cpu(args, outs):
             return self.plain_version(desc, args, outs)
         self._grid(desc)

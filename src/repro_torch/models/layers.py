@@ -80,7 +80,8 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     # the position component of each frequency slot
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.tensor(sections, device=x.device))              # (D/2,)
+        torch.tensor(sections, device=x.device),
+        output_size=d // 2)                                   # (D/2,)
     pos_per_slot = positions.float()[sec_id]                  # (D/2, B, S)
     angles = torch.einsum("fbs,f->bsf", pos_per_slot, freqs)  # (B, S, D/2)
     return _rotate(x, angles[..., None, :])
@@ -293,7 +294,9 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor,
 
     Scalar index: one slice write, its start clamped so that the slice
     fits (as ``lax.dynamic_update_slice`` clamps). (B,) per-slot indices
-    (continuous batching): one-hot masked write.
+    (continuous batching): one-hot masked write. A meta index (the dry
+    run's abstract inputs) has no value: the slice is written at 0, the
+    same ops on the same shapes as at any start.
     """
     idx = torch.as_tensor(index, device=cache.device)
     if idx.ndim == 1:
@@ -303,7 +306,7 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor,
         return torch.where(onehot[:, :, None, None], kv.to(cache.dtype),
                            cache)
     n = kv.shape[1]
-    start = min(max(int(idx), 0), cache.shape[1] - n)
+    start = 0 if idx.is_meta else min(max(int(idx), 0), cache.shape[1] - n)
     out = cache.clone()
     out[:, start:start + n] = kv.to(cache.dtype)
     return out
