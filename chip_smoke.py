@@ -99,7 +99,18 @@ Phases, each raising on failure:
      predicted argument bytes equal to the bytes phase 9 passed,
      ``fits_hbm`` true for both and false for a train step with f32
      masters, the predicted roofline terms and peak against phase 9's
-     device ms and peaks.
+     device ms and peaks;
+ 12. the train step sharded over a mesh of processes: ``python -m
+     repro_torch.launch.train --full --nproc 2`` trains mamba2-130m whole
+     (B = 8, S = 512, 5 steps) on the (2, 1) and (1, 2) meshes, both ranks
+     of one gloo group on ``cuda:0`` (parameters and optimizer state stored
+     by the reference's shardings as DTensors, compute on gathered
+     tensors, all-reduces only); every loss within SHARDED_LOSS_TOL of
+     ``train()`` in one process, each rank's argument bytes equal to the
+     dry run's for the mesh, every shard on the card. No kernel runs: the
+     train step runs torch ops (``use_pallas`` training is refused).
+``python3 chip_smoke.py --gloo-probe`` lists which collectives gloo
+carries on CUDA tensors in the card's torch (a pair of ranks each).
 Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9 and 10 each zero the launch counts
 before their path and read them after; every entry point of the path must
 have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
@@ -120,7 +131,8 @@ import threading
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -193,6 +205,17 @@ EF_TOL = dict(rtol=1e-5, atol=1e-6)
 # outage 1.5 budgets, so only the outage's victims time out
 OBS_REQUESTS, OBS_NEW_TOKENS, OBS_PROMPTS = 12, 6, tuple(range(4, 12))
 OBS_TIMEOUT_FLOOR = 6.0
+# phase 12: the train step sharded over two ranks of one gloo group, both
+# on the one card; mamba2-130m whole at phase 7's batch for 5 steps on the
+# (2, 1) and (1, 2) meshes, each loss within SHARDED_LOSS_TOL of one
+# process with as many microbatches as data shards:
+# tests/test_torch_sharded_train.py's TRAIN_LOSS_TOL for train() at its
+# default dtypes (bit for bit on the CPU; against one microbatch on (2, 1)
+# the reduced model lies 4.4e-3 away over 12 steps, the reference's own
+# meshes 2.1e-3 apart over 3). At the step builders' default lr: at
+# train()'s 3e-3 the whole model's loss jumps (11.27, 13.06, 9.33 in its
+# first steps on an H100), which magnifies any change in the sums' order
+SHARDED_STEPS, SHARDED_LOSS_TOL, SHARDED_LR = 5, 1e-2, 3e-4
 # phase 11: the dry run's cells, one shape per family on both production
 # meshes (the whole sweep, some 3 min on a CPU, is the CLI's: ``python -m
 # repro_torch.launch.dryrun --all --mesh both``), and a deepseek-coder-33b
@@ -2908,6 +2931,178 @@ def dryrun_phase(cfg, measured, card, dev, batch=STEPS_BATCH,
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the train step sharded over a mesh of processes
+# ---------------------------------------------------------------------------
+
+
+def run_tree(cmd, timeout_s: float, env=None):
+    """``cmd`` in a session of its own, killed with every process it
+    started once ``timeout_s`` passes; (exit code, stdout, stderr)."""
+    import signal
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=str(ROOT), start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return -9, out, err + f"\nkilled after {timeout_s:.0f} s"
+    return proc.returncode, out, err
+
+
+def sharded_phase(arch, dev, reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                  steps=SHARDED_STEPS, lr=SHARDED_LR, timeout_s=600.0):
+    """Phase 12: ``python -m repro_torch.launch.train --nproc 2`` on the
+    (2, 1) and (1, 2) meshes, every rank on ``dev`` (``cuda:0`` on the
+    card), against ``train()`` in this process from the same seed with as
+    many microbatches as the mesh has data shards (the rows each rank
+    computes; on the CPU the two are equal bit for bit). Gates: the
+    losses equal on the ranks and within SHARDED_LOSS_TOL of that run at
+    every step; the bytes each rank holds of the parameters, optimizer
+    state and batch equal the dry run's argument bytes for the mesh;
+    every shard on the device. Returns the per-mesh readings."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.train import train
+    t0 = time.monotonic()
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    one = {}
+    for n in (1, 2):
+        one[n] = train(arch, steps=steps, batch=batch, seq=seq,
+                       reduced=reduced, lr=lr, log_every=steps,
+                       num_microbatches=n, device=dev)
+        print(f"  one process on {one[n]['device']}, {n} microbatch(es): "
+              f"losses {[round(x, 5) for x in one[n]['losses']]}, step "
+              f"host ms {[round(x, 1) for x in one[n]['step_ms']]}",
+              flush=True)
+    where = f"{dev.type}:0" if dev.type == "cuda" else "cpu"
+    print(f"  the ranks run on {where}: two processes of one gloo group "
+          f"share the {'one card' if dev.type == 'cuda' else 'CPU'} (NCCL "
+          "refuses two ranks on one device; gloo carries all_reduce on CUDA "
+          "tensors, the one collective of the sharded step, "
+          "`chip_smoke.py --gloo-probe`)", flush=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = {}
+    for mp in (2, 1):
+        mesh = Mesh(("data", "model"), (2 // mp, mp), dev.type)
+        want = dryrun.price(cfg, ShapeConfig("driver", seq, batch, "train"),
+                            mesh)["memory"]["argument_size_in_bytes"]
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--steps", str(steps), "--batch", str(batch), "--seq",
+               str(seq), "--lr", str(lr), "--nproc", "2",
+               "--model-parallel", str(mp),
+               "--device", dev.type, "--timeout", str(timeout_s)]
+        code, stdout, stderr = run_tree(cmd + ([] if reduced else ["--full"]),
+                                        timeout_s + 60, env)
+        if code != 0:
+            raise AssertionError(f"phase 12 {mesh.shape}: the ranks exited "
+                                 f"{code}:\n{stderr[-4000:]}")
+        ranks = json.loads(stdout.strip().splitlines()[-1])
+        got = ranks[0]["losses"]
+        diff, plain = (max(abs(a - b) for a, b in zip(got, one[n]["losses"]))
+                       for n in (mesh.shape[0], 1))
+        ok = (all(r["losses"] == got for r in ranks)
+              and len(got) == steps and diff <= SHARDED_LOSS_TOL
+              and all(r["argument_bytes"] == want for r in ranks)
+              and all(r["devices"] == [where] for r in ranks)
+              and sorted(r["rank"] for r in ranks) == [0, 1]
+              and all(r["mesh"] == list(mesh.shape) for r in ranks))
+        med = [float(np.median(r["step_ms"][1:])) for r in ranks]
+        comm = [float(np.median(r["comm_ms"][1:])) for r in ranks]
+        print(f"  {mesh.shape} over ('data', 'model'), ranks on "
+              f"{[r['devices'] for r in ranks]}: losses "
+              f"{[round(x, 5) for x in got]}, largest difference from one "
+              f"process with {mesh.shape[0]} microbatch(es) {diff:.3e} [<= "
+              f"{SHARDED_LOSS_TOL:g}] (from one microbatch {plain:.3e}); "
+              f"bytes per rank {[r['argument_bytes'] for r in ranks]}, dry "
+              f"run {want}; median step host ms per rank (steps 1..) "
+              f"{[round(x, 1) for x in med]}, of which all-reduces "
+              f"{[round(x, 1) for x in comm]} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"phase 12 {mesh.shape}: the sharded run "
+                                 "disagrees with one process, with the dry "
+                                 "run's bytes or with its device")
+        out[mesh.shape] = dict(losses=got, diff=diff, plain=plain,
+                               step_ms=med, comm_ms=comm, bytes=want)
+    print(f"  phase 12 in {time.monotonic() - t0:.1f} s", flush=True)
+    return out
+
+
+GLOO_OPS = ("all_reduce/float32", "all_reduce/int64", "all_reduce/bfloat16",
+            "broadcast/float32", "all_gather/float32",
+            "all_gather_into_tensor/float32",
+            "reduce_scatter_tensor/float32", "all_to_all_single/float32",
+            "reduce/float32", "barrier/float32")
+
+
+def gloo_probe_rank(case: str) -> int:
+    """``chip_smoke.py --gloo-probe-rank OP/DTYPE``: one rank of the probe,
+    one collective on CUDA tensors."""
+    from repro_torch.launch.mesh import init_from_env
+    dist = torch.distributed
+    world = init_from_env()
+    op, dtype = case.split("/")
+    dev = torch.device("cuda", 0)
+    x = torch.full((8,), dist.get_rank() + 1, dtype=getattr(torch, dtype),
+                   device=dev)
+    if op == "all_reduce":
+        dist.all_reduce(x)
+        got = x
+    elif op == "broadcast":
+        dist.broadcast(x, 0)
+        got = x
+    elif op == "all_gather":
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        got = torch.cat(parts)
+    elif op == "all_gather_into_tensor":
+        got = torch.empty(8 * world, dtype=x.dtype, device=dev)
+        dist.all_gather_into_tensor(got, x)
+    elif op == "reduce_scatter_tensor":
+        got = torch.empty(8 // world, dtype=x.dtype, device=dev)
+        dist.reduce_scatter_tensor(got, x)
+    elif op == "all_to_all_single":
+        got = torch.empty_like(x)
+        dist.all_to_all_single(got, x)
+    elif op == "reduce":
+        dist.reduce(x, 0)
+        got = x
+    else:
+        dist.barrier()
+        got = x
+    torch.cuda.synchronize(dev)
+    print(json.dumps(got.float().tolist()))
+    return 0
+
+
+def gloo_probe_main() -> int:
+    """``chip_smoke.py --gloo-probe``: which collectives gloo carries on
+    CUDA tensors in this torch, each in a pair of ranks of its own on
+    ``cuda:0`` (a collective that crashes its ranks harms no other)."""
+    from repro_torch.launch.mesh import run_ranks
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for case in GLOO_OPS:
+        ranks = run_ranks([sys.executable, str(Path(__file__).resolve()),
+                           "--gloo-probe-rank", case], 2, 90, env=env)
+        codes = [c for c, _, _ in ranks]
+        got = [o.strip().splitlines()[-1] if c == 0 and o.strip() else
+               (e.strip().splitlines() or [""])[-1][:120]
+               for c, o, e in ranks]
+        print(f"  gloo {case} on cuda:0 x2: "
+              f"{'carried' if codes == [0, 0] else 'NOT carried'} "
+              f"(exit {codes}): {got}", flush=True)
+    return 0
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -3083,6 +3278,13 @@ def main() -> int:
     t11 = time.monotonic()
     dryrun_phase(get_config("deepseek-coder-33b"), s_measured, card, dev)
     print(f"  phase 11 in {time.monotonic() - t11:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[12] the train step sharded over a mesh of processes: "
+          "mamba2-130m whole, two ranks of one gloo group on the card, on "
+          "(2, 1) and (1, 2)", flush=True)
+    sharded_phase("mamba2-130m", dev)
 
     summary = []
     for fam, label, shape, route in lines:
@@ -3114,4 +3316,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--restart-gate"]:
         sys.exit(restart_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--gloo-probe"]:
+        sys.exit(gloo_probe_main())
+    if sys.argv[1:2] == ["--gloo-probe-rank"]:
+        sys.exit(gloo_probe_rank(sys.argv[2]))
     sys.exit(main())

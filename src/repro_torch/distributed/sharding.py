@@ -10,8 +10,17 @@ and shard shapes equal the reference's leaf for leaf. A ``PartitionSpec``
 is a tuple with one entry per tensor dim: ``None`` (replicated), a mesh
 axis name, or a tuple of names (sharded over all of them, major first). A
 ``NamedSharding`` turns one into a shard shape and into ``DTensor``
-placements. ``constrain`` is the identity without a mesh or on one
-device, and raises on a larger one: no intermediate is sharded yet.
+placements.
+
+On a mesh of more than one process (one per device), ``ShardGroup`` is a
+rank's part: ``layout`` stores a tree as ``DTensor``s by its
+``NamedSharding``s, each rank holding its shard; ``gather`` is its
+inverse; ``mean_over`` averages over the batch's shards, and
+``batch_mean`` hands that to the model; all by all-reduces on the
+default group (gloo carries those for CUDA tensors too). The train
+step runs so: storage sharded, compute on gathered tensors
+(``launch.steps``). ``constrain`` is the identity without a mesh or on
+one device, and raises on a larger one: nothing shards an intermediate.
 """
 from __future__ import annotations
 
@@ -19,11 +28,15 @@ import contextlib
 import math
 import os
 import threading
+import time
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.launch.mesh import Mesh
-from repro_torch.tree import tree_map
+import torch
+
+from repro_torch.launch.mesh import Mesh, local_device
+from repro_torch.tree import (flatten_up_to, tree_flatten, tree_map,
+                              tree_unflatten)
 
 # logical axis -> mesh axis (or tuple of mesh axes)
 DEFAULT_RULES: Dict[str, Any] = {
@@ -77,7 +90,7 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
-def _group(entry) -> Tuple[str, ...]:
+def entry_axes(entry) -> Tuple[str, ...]:
     return () if entry is None else (
         (entry,) if isinstance(entry, str) else tuple(entry))
 
@@ -93,7 +106,7 @@ class NamedSharding:
         sizes = self.mesh.sizes
         out = list(global_shape)
         for i, entry in enumerate(self.spec):
-            n = math.prod(sizes[a] for a in _group(entry))
+            n = math.prod(sizes[a] for a in entry_axes(entry))
             if out[i] % n:
                 raise ValueError(f"dim {i} of {tuple(global_shape)} does not "
                                  f"divide over {entry} ({n} devices)")
@@ -109,7 +122,7 @@ class NamedSharding:
         names = self.mesh.axis_names
         out = [Replicate() for _ in names]
         for i, entry in enumerate(self.spec):
-            idx = [names.index(a) for a in _group(entry)]
+            idx = [names.index(a) for a in entry_axes(entry)]
             if idx != sorted(idx):
                 raise ValueError(f"{entry}: mesh axes out of the mesh's "
                                  f"order {names}")
@@ -122,6 +135,7 @@ class _Ctx(threading.local):
     def __init__(self):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, Any] = dict(DEFAULT_RULES)
+        self.batch_mean: Optional[Callable] = None
 
 
 _CTX = _Ctx()
@@ -165,7 +179,8 @@ def logical_to_spec(axes: Sequence[Optional[str]],
         if tgt is None:
             out.append(None)
             continue
-        cand = tuple(t for t in _group(tgt) if t in names and t not in used)
+        cand = tuple(t for t in entry_axes(tgt)
+                     if t in names and t not in used)
         if shape is not None and cand and sizes:
             while cand and shape[i] % math.prod(sizes[c] for c in cand):
                 cand = cand[:-1]       # drop trailing axes until divisible
@@ -222,3 +237,152 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, logical_to_spec(("batch", None), mesh))
+
+
+# ---------------------------------------------------------------------------
+# Sharded storage on a mesh of processes
+# ---------------------------------------------------------------------------
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x``, a statistic of this rank's batch shard, averaged over the
+    batch's shards inside a sharded step (``use_batch_mean``); ``x``
+    itself outside one. Not differentiated: the MoE router's load (the
+    share of tokens that picks each expert) is the one caller."""
+    fn = _CTX.batch_mean
+    return x if fn is None else fn(x)
+
+
+@contextlib.contextmanager
+def use_batch_mean(fn: Callable[[torch.Tensor], torch.Tensor]):
+    prev = _CTX.batch_mean
+    _CTX.batch_mean = fn
+    try:
+        yield
+    finally:
+        _CTX.batch_mean = prev
+
+
+class ShardGroup:
+    """This process's part of ``mesh``, a mesh of one process per device
+    whose ranks 0 .. size - 1 lie in row-major order (``Mesh.device_mesh``):
+    its coordinates, the slice of each sharding it holds, and the
+    all-reduces that gather and reduce shards. ``comm_s`` adds up the
+    host seconds spent in them."""
+
+    def __init__(self, mesh: Mesh, device: Optional[torch.device] = None):
+        dist = torch.distributed
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != mesh.size:
+            raise ValueError(f"{mesh} needs a process group of {mesh.size} "
+                             f"ranks, not {world}")
+        self.mesh = mesh
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        idx = torch.arange(mesh.size).reshape(mesh.shape)
+        where = (idx == self.rank).nonzero()[0].tolist()
+        self.coords: Dict[str, int] = dict(zip(mesh.axis_names, where))
+        self.device = device or local_device(mesh)
+        self.comm_s = 0.0
+        self._device_mesh = None
+
+    @property
+    def device_mesh(self):
+        if self._device_mesh is None:
+            self._device_mesh = self.mesh.device_mesh()
+        return self._device_mesh
+
+    def slices(self, sharding: NamedSharding,
+               shape: Sequence[int]) -> Tuple[slice, ...]:
+        """This rank's shard of a tensor of ``shape``: a dim over several
+        mesh axes split major first, as ``placements()`` splits it."""
+        sizes = self.mesh.sizes
+        out = []
+        for i, n in enumerate(shape):
+            start, length = 0, n
+            for a in entry_axes(sharding.spec[i]
+                                if i < len(sharding.spec) else None):
+                length //= sizes[a]
+                start += self.coords[a] * length
+            out.append(slice(start, start + length))
+        return tuple(out)
+
+    def owns(self, sharding: NamedSharding) -> bool:
+        """Whether this rank is the first holder of its shard (coordinate 0
+        on every mesh axis the sharding replicates over)."""
+        used = {a for e in sharding.spec for a in entry_axes(e)}
+        return all(c == 0 for a, c in self.coords.items() if a not in used)
+
+    def local(self, full: torch.Tensor,
+              sharding: NamedSharding) -> torch.Tensor:
+        """This rank's shard of ``full``, in storage of its own."""
+        return full[self.slices(sharding, full.shape)].clone(
+            memory_format=torch.contiguous_format)
+
+    def _sum(self, shapes, dtypes, fill) -> List[torch.Tensor]:
+        """Sum tensors of ``shapes`` and ``dtypes`` over all ranks, in one
+        all-reduce per dtype (16-bit floats summed in f32): each starts as
+        -0.0 (0 for integers), the identity of +, so a value that one rank
+        alone writes comes back bit for bit, and ``fill(i, view)`` writes
+        this rank's part of tensor ``i``."""
+        out: List[Optional[torch.Tensor]] = [None] * len(shapes)
+        by_wire: Dict[torch.dtype, List[int]] = {}
+        for i, dt in enumerate(dtypes):
+            wire = (torch.float32 if dt in (torch.bfloat16, torch.float16)
+                    else dt)
+            by_wire.setdefault(wire, []).append(i)
+        for wire, idx in by_wire.items():
+            n = [math.prod(shapes[i]) for i in idx]
+            flat = torch.full((sum(n),), -0.0 if wire.is_floating_point
+                              else 0, dtype=wire, device=self.device)
+            for i, view in zip(idx, flat.split(n)):
+                out[i] = view.view(shapes[i])
+                fill(i, out[i])
+            t0 = time.monotonic()
+            torch.distributed.all_reduce(flat)
+            self.comm_s += time.monotonic() - t0
+            for i in idx:
+                out[i] = out[i].to(dtypes[i])
+        return out
+
+    def mean_over(self, tensors: List[torch.Tensor],
+                  axes: Sequence[str]) -> List[torch.Tensor]:
+        """The mean over the ranks that differ only along ``axes`` (the
+        batch's shards) of each tensor, equal on every rank: the ranks at
+        coordinate 0 on the other axes contribute."""
+        first = all(c == 0 for a, c in self.coords.items() if a not in axes)
+        n = math.prod(self.mesh.sizes[a] for a in axes)
+
+        def fill(i, view):
+            if first:
+                view.copy_(tensors[i])
+        return [t / n for t in self._sum([tuple(t.shape) for t in tensors],
+                                         [t.dtype for t in tensors], fill)]
+
+    def layout(self, tree, shardings):
+        """``tree`` (whole tensors, equal on every rank) as ``DTensor``s on
+        the mesh, each rank storing its shard on its device."""
+        from torch.distributed.tensor import DTensor
+
+        def one(t, sharding):
+            shard = self.local(t.to(self.device), sharding)
+            return DTensor.from_local(
+                shard, self.device_mesh, sharding.placements(),
+                run_check=False, shape=t.shape,
+                stride=torch.empty(t.shape, device="meta").stride())
+        return tree_map(one, tree, shardings)
+
+    def gather(self, tree, shardings):
+        """The whole value of each ``DTensor`` of ``tree``, on every rank,
+        in one all-reduce: each shard lands at its slice, written by its
+        first holder alone."""
+        leaves, treedef = tree_flatten(tree)
+        shs = flatten_up_to(treedef, shardings)
+        places = [self.slices(s, t.shape) if self.owns(s) else None
+                  for t, s in zip(leaves, shs)]
+
+        def fill(i, view):
+            if places[i] is not None:
+                view[places[i]] = leaves[i].to_local()
+        return tree_unflatten(treedef, self._sum(
+            [tuple(t.shape) for t in leaves], [t.dtype for t in leaves],
+            fill))

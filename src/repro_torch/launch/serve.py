@@ -34,7 +34,7 @@ from repro_torch.core.metrics import LatencyStats
 from repro_torch.core.traffic import maf2_like_trace
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.steps import make_optimizer, make_train_step
 from repro_torch.models.transformer import TransformerLM, build_model
 from repro_torch.serving import (BrownoutPolicy, HedgePolicy, RetryPolicy,
@@ -45,14 +45,17 @@ class BestEffortTrainer:
     """The co-located best-effort job: each call is one train step of
     ``model`` (parameters drawn from ``seed + 1``, the optimizer that
     ``model.cfg.optimizer`` names) on batch ``quanta`` of a synthetic
-    dataset seeded with ``seed``, as the reference's ``be_step``."""
+    dataset seeded with ``seed``, as the reference's ``be_step``. It runs
+    on the serving process's one device, in a process group or not (the
+    reference's trainer steps on ``make_host_mesh()``, every device of
+    the host)."""
 
     def __init__(self, model: TransformerLM, *, batch: int = 2,
                  seq: int = 32, seed: int = 0,
                  device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
         self.step_fn = make_train_step(
-            model, make_host_mesh(device=self.device),
+            model, Mesh(("data", "model"), (1, 1), self.device.type),
             ShapeConfig("be", seq, batch, "train")).fn
         self.params = model.init(seed + 1, device=self.device)
         self.opt_state = make_optimizer(model.cfg).init(self.params)

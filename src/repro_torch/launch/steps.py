@@ -6,18 +6,21 @@ co-located trainer (``launch/serve.py``) and ``chip_smoke.py``. Every
 builder is pure: (model, mesh, shape, options) -> ``StepBundle``, the
 step function with its abstract inputs (meta tensors) and the shardings
 of its inputs and outputs on ``mesh``, equal to the reference's leaf for
-leaf. The function runs eagerly in one process on one device: a mesh
-larger than that is described, not run (tensors are split across devices
-only as DTensors, ``distributed.sharding``). Donation has no meaning in
-eager torch; ``donate_argnums`` is the reference's metadata, and the
-decode step may write into the cache it is given.
+leaf. On one device the function runs eagerly on whole tensors. Donation
+has no meaning in eager torch; ``donate_argnums`` is the reference's
+metadata, and the decode step may write into the cache it is given.
 
 The train step: ``loss_fn``'s gradients (the cross-entropy plus the MoE
 auxiliary loss; a batch's ``encoder_embeds`` go to the audio family's
 encoder) by ``torch.autograd.grad`` over the parameter leaves,
 microbatches summed and divided by their count, the schedule read at
-``opt_state.step`` before the update. The serving steps hold the weights
-in the model dtype (``serving_param_shapes``), not as f32 masters.
+``opt_state.step`` before the update. On a mesh of more than one process
+(one per device) it takes its inputs as ``DTensor``s laid out by its
+``in_shardings`` (``ShardGroup.layout``) and returns them so: storage
+follows the reference's shardings, compute runs on gathered tensors (see
+``make_train_step``). The serving steps run on one device only; they hold
+the weights in the model dtype (``serving_param_shapes``), not as f32
+masters.
 """
 from __future__ import annotations
 
@@ -32,8 +35,10 @@ from repro_torch.configs.base import (ModelConfig, ShapeConfig, input_specs,
 from repro_torch.distributed.sharding import (DEFAULT_RULES,
                                               INFER_PARAM_RULES, PARAM_RULES,
                                               NamedSharding, PartitionSpec,
-                                              is_axes_leaf, logical_to_spec,
-                                              tree_shardings)
+                                              ShardGroup, entry_axes,
+                                              is_axes_leaf,
+                                              logical_to_spec, tree_shardings,
+                                              use_batch_mean)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.transformer import TransformerLM, build_model, loss_fn
 from repro_torch.optim.adafactor import (AdafactorConfig, adafactor_init,
@@ -41,7 +46,7 @@ from repro_torch.optim.adafactor import (AdafactorConfig, adafactor_init,
                                          adafactor_slot_shapes,
                                          adafactor_update)
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_init,
-                                     adamw_update)
+                                     adamw_update, global_norm)
 from repro_torch.optim.schedule import Schedule, constant
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
@@ -90,6 +95,9 @@ class OptBundle:
     update: Callable[..., Tuple[Any, Any, torch.Tensor]]
     state_shapes: Callable[[Any], Any]
     state_axes: Callable[[Any], Any]
+    # the update is elementwise given the global norm (``gnorm=``), so a
+    # sharded step runs it on shards; else on gathered state
+    elementwise: bool = False
 
 
 def _adamw_state_shapes(param_shapes) -> OptState:
@@ -116,7 +124,7 @@ def make_optimizer(cfg: ModelConfig, lr: float = 3e-4) -> OptBundle:
     return OptBundle(init=adamw_init,
                      update=partial(adamw_update, AdamWConfig(lr=lr)),
                      state_shapes=_adamw_state_shapes,
-                     state_axes=_adamw_state_axes)
+                     state_axes=_adamw_state_axes, elementwise=True)
 
 
 # ---------------------------------------------------------------------------
@@ -133,6 +141,9 @@ class StepBundle:
     in_shardings: Tuple[Any, ...]
     out_shardings: Any
     donate_argnums: Tuple[int, ...]
+    # on a mesh of more than one process: the step each rank calls on its
+    # shards (``fn`` is the global step, as the reference jits it)
+    sharded_fn: Optional[Callable] = None
 
 
 def compute_grads(model: TransformerLM, params,
@@ -149,12 +160,52 @@ def compute_grads(model: TransformerLM, params,
     return loss.detach(), tree_unflatten(treedef, grads)
 
 
+def _grads(model: TransformerLM, params, batch, n: int):
+    """(loss, gradients) of ``batch``, in ``n`` microbatches summed and
+    divided by their count."""
+    if n == 1:
+        return compute_grads(model, params, batch)
+    mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+          for k, v in batch.items()}
+    for i in range(n):
+        li, gi = compute_grads(model, params,
+                               {k: v[i] for k, v in mb.items()})
+        grads, loss = ((gi, li) if i == 0 else
+                       (tree_map(torch.add, grads, gi), loss + li))
+    return loss / n, tree_map(lambda g: g / n, grads)
+
+
 def make_train_step(model: TransformerLM, mesh: Mesh, shape: ShapeConfig, *,
                     schedule: Optional[Schedule] = None,
                     num_microbatches: int = 1,
-                    lr: float = 3e-4) -> StepBundle:
+                    lr: float = 3e-4,
+                    group: Optional[ShardGroup] = None) -> StepBundle:
     """``fn(params, opt_state, batch) -> (params, opt_state, {"loss",
-    "grad_norm"})`` for ``model``, with its shardings on ``mesh``."""
+    "grad_norm"})`` for ``model``, with its shardings on ``mesh``.
+
+    On a mesh of more than one process, ``sharded_fn`` is called on every
+    rank with ``DTensor``s laid out by ``in_shardings`` (parameters and
+    optimizer state by ``PARAM_RULES``: FSDP on ``embed`` over data, the
+    tensor-parallel axes over model; the batch by ``DEFAULT_RULES``) and
+    returns them so. It gathers every weight whole and the batch's rows
+    of this rank's data shard with the whole sequence (a causal model
+    cannot run on a slice of it, and ``seq`` maps to model under
+    ``REPRO_OPT_SP=1``), runs ``compute_grads`` on plain tensors (so the
+    model axis shards storage, not compute: the ranks of a model group
+    compute the same rows), and averages loss and gradients over the data
+    shards, which leaves the whole gradients on every rank. The MoE
+    router's load is averaged over the data shards before its product
+    with the router's mean probability (``sharding.batch_mean``). AdamW's
+    update is elementwise given the global norm, taken from the whole
+    gradients, so it runs on the shards of the parameters, gradients and
+    moments; Adafactor's row and column means and RMS need whole tensors
+    and its factored state is small, so it runs on the whole parameters,
+    gradients and gathered state, and each rank keeps its shards.
+    ``loss`` and ``grad_norm`` are global and equal on every rank; with
+    as many microbatches as data shards, one process computes the same
+    rows and sums. ``num_microbatches`` splits this rank's rows. All
+    collectives are all-reduces on the default group, through ``group``
+    (made at the first call if not given)."""
     cfg = model.cfg
     if cfg.use_pallas:
         raise NotImplementedError(
@@ -170,19 +221,7 @@ def make_train_step(model: TransformerLM, mesh: Mesh, shape: ShapeConfig, *,
     sched = schedule or constant(1.0)
 
     def train_step(params, opt_state, batch):
-        if num_microbatches > 1:
-            n = num_microbatches
-            mb = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
-                  for k, v in batch.items()}
-            for i in range(n):
-                li, gi = compute_grads(model, params,
-                                       {k: v[i] for k, v in mb.items()})
-                grads, loss = ((gi, li) if i == 0 else
-                               (tree_map(torch.add, grads, gi), loss + li))
-            grads = tree_map(lambda g: g / n, grads)
-            loss = loss / n
-        else:
-            loss, grads = compute_grads(model, params, batch)
+        loss, grads = _grads(model, params, batch, num_microbatches)
         new_params, new_state, gnorm = opt.update(params, grads, opt_state,
                                                   sched(opt_state.step))
         return new_params, new_state, {"loss": loss.float(),
@@ -200,13 +239,65 @@ def make_train_step(model: TransformerLM, mesh: Mesh, shape: ShapeConfig, *,
     b_sh = tree_shardings(baxes, mesh, DEFAULT_RULES, bspecs)
     rep = NamedSharding(mesh, PartitionSpec())
     m_sh = {"loss": rep, "grad_norm": rep}
+    groups = [group]
+
+    def sharded_train_step(params, opt_state, batch):
+        if groups[0] is None:         # the process group exists by now
+            groups[0] = ShardGroup(mesh)
+        g = groups[0]
+        whole = g.gather(params, p_sh)
+        # this rank's rows with the whole sequence; the mesh axes of the
+        # batch dim are the data shards that loss and gradients average over
+        data = entry_axes(b_sh["tokens"].spec[0])
+        mine = g.slices(NamedSharding(mesh, PartitionSpec(data or None)),
+                        (shape.global_batch,))[0]
+        rows = {}
+        for k, v in g.gather(batch, b_sh).items():
+            sl = [slice(None)] * v.ndim
+            sl[baxes[k].index("batch")] = mine
+            v = v[tuple(sl)]
+            rows[k] = v if v.is_floating_point() else v.long()
+        if rows["tokens"].shape[0] % num_microbatches:
+            raise ValueError(f"{rows['tokens'].shape[0]} rows per data "
+                             f"shard do not split into {num_microbatches} "
+                             "microbatches")
+        with use_batch_mean(lambda x: g.mean_over([x], data)[0]):
+            loss, grads = _grads(model, whole, rows, num_microbatches)
+        leaves, treedef = tree_flatten(grads)
+        loss, *leaves = g.mean_over([loss] + leaves, data)
+        grads = tree_unflatten(treedef, leaves)
+        lr_scale = sched(opt_state.step.to_local())
+        mine_of = partial(tree_map, lambda x, s: g.local(x, s))
+        if opt.elementwise:
+            new_p, new_s, gnorm = opt.update(
+                tree_map(lambda t: t.to_local(), params),
+                mine_of(grads, p_sh),
+                tree_map(lambda t: t.to_local(), opt_state), lr_scale,
+                gnorm=global_norm(grads))
+        else:
+            new_p, new_s, gnorm = opt.update(
+                whole, grads, g.gather(opt_state, o_sh), lr_scale)
+            new_p, new_s = mine_of(new_p, p_sh), mine_of(new_s, o_sh)
+        return (_as_dtensors(new_p, params), _as_dtensors(new_s, opt_state),
+                {"loss": loss.float(), "grad_norm": gnorm.float()})
+
     return StepBundle(
         fn=train_step,
         abstract_inputs=(param_shapes, opt_shapes, bspecs),
         in_shardings=(p_sh, o_sh, b_sh),
         out_shardings=(p_sh, o_sh, m_sh),
         donate_argnums=(0, 1),
+        sharded_fn=sharded_train_step if mesh.size > 1 else None,
     )
+
+
+def _as_dtensors(shards, like):
+    """Each shard of ``shards`` as a ``DTensor`` with the global shape and
+    placements of the matching leaf of ``like``."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda t, d: DTensor.from_local(
+        t, d.device_mesh, d.placements, run_check=False, shape=d.shape,
+        stride=d.stride()), shards, like)
 
 
 # ---------------------------------------------------------------------------

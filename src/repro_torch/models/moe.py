@@ -24,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import batch_mean
 from repro_torch.models.common import P
 
 
@@ -82,9 +83,12 @@ def route(params, x: torch.Tensor, cfg) -> Dict[str, torch.Tensor]:
     dt = x.dtype
     probs, gate_vals, expert_idx = choose(params, x, cfg)
 
-    # load-balancing auxiliary loss (Switch/GShard)
+    # load-balancing auxiliary loss (Switch/GShard); in a sharded step the
+    # load ce is the whole batch's (a product of means is not a mean over
+    # batch shards), while me's mean over the shards is the step's own
+    # average of the loss and gradients, since aux is linear in me
     me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
+    ce = batch_mean(F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1)))
     aux = (E * torch.sum(me * ce)).float()
 
     # position-in-expert via cumsum over the flattened (token, k) choices,

@@ -7,12 +7,14 @@ step, ``p32 - lr * (delta + wd * p32)`` in f32, cast back to the
 parameter's dtype. ``adamw_update`` is a pure function of its arguments
 (new tensors out, none changed in place); the state mirrors the parameter
 tree, so a JAX ``OptState`` carried across through numpy
-(``weights.opt_state_from_jax``) runs unchanged.
+(``weights.opt_state_from_jax``) runs unchanged. Apart from the global
+norm, the update is elementwise, so a sharded step runs it on each
+rank's shards, given the norm of the whole gradients (``gnorm``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Tuple, Union
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -54,21 +56,25 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """(clipped grads, pre-clip norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float,
+                        norm: Optional[torch.Tensor] = None):
+    """(clipped grads, pre-clip norm); ``norm`` if the caller has it."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (norm + 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState,
-                 lr_scale: Union[torch.Tensor, float] = 1.0
+                 lr_scale: Union[torch.Tensor, float] = 1.0,
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, OptState, torch.Tensor]:
-    """One AdamW step. Returns (new_params, new_state, grad_norm)."""
+    """One AdamW step. Returns (new_params, new_state, grad_norm); the
+    global norm is ``gnorm`` where the caller has it (the trees then hold
+    shards of tensors whose whole gradients have that norm)."""
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
+    elif gnorm is None:
         gnorm = global_norm(grads)
     step = state.step + 1
     t = step.to(torch.float32)

@@ -381,10 +381,23 @@ class ServingEngine:
         (returns True — the caller keeps it out of queue/slot; the same
         ``Request`` handle re-enters the queue with tokens reset behind a
         deterministic backoff gate), or shed it terminally (returns
-        False). Hedge clones never retry — their primary's budget does."""
+        False). Hedge clones never retry — their primary's budget does.
+
+        A clone is withdrawn, not shed: it carries its primary's deadline,
+        so the primary expires in the same pass, and the primary's retry
+        or shed is the request's fate. (The reference sheds the clone, so
+        a request answered after a second timeout still counts a shed.)"""
+        if req.hedge_of is not None:
+            group = self._hedge_group.get(req.hedge_of)
+            if group is not None:
+                group["clones"] = [c for c in group["clones"]
+                                   if c is not req]
+                if self.obs is not None and hasattr(self.obs, "hedge"):
+                    self.obs.hedge("lost")
+            return True
         rp = self.retry
-        if (rp is None or req.hedge_of is not None
-                or req.timeout is None or req.attempt >= rp.max_retries):
+        if (rp is None or req.timeout is None
+                or req.attempt >= rp.max_retries):
             self._shed_one(req, now, where)
             return False
         req.attempt += 1

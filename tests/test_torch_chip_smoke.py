@@ -536,3 +536,23 @@ def test_hub_gates_fail_when_the_registry_disagrees():
     hub.serving().retired(0.5)
     with pytest.raises(AssertionError, match="'requests'"):
         cs.hub_gates("bad", hub, eng, 2, 0)
+
+
+def test_sharded_phase_on_cpu_at_reduced_width(capsys):
+    """Phase 12 at reduced mamba2-130m width on the CPU: the training CLI's
+    two ranks on (2, 1) and (1, 2) against ``train()`` in one process
+    with as many microbatches as data shards, each rank's bytes against
+    the dry run's, every shard on the CPU."""
+    out = cs.sharded_phase("mamba2-130m", torch.device("cpu"), reduced=True,
+                           batch=4, seq=32, steps=3, timeout_s=240)
+    assert set(out) == {(2, 1), (1, 2)}
+    # bit for bit on the CPU: each rank computes the rows of one microbatch
+    assert out[(2, 1)]["diff"] == out[(1, 2)]["diff"] == 0.0
+    text = capsys.readouterr().out
+    assert text.count(" ok\n") == 2 and "the ranks run on cpu" in text
+
+
+def test_sharded_phase_tolerance_is_the_tests():
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_sharded_train as t
+    assert cs.SHARDED_LOSS_TOL == t.TRAIN_LOSS_TOL

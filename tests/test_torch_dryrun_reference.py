@@ -274,3 +274,37 @@ def test_reference_production_mesh_fault_is_pinned():
                         ShapeConfig("t", 64, 8, "prefill"),
                         Mesh(("data", "model"), (16, 16)))
     assert cell["flops_per_device"] > 0
+
+
+HOST_MESH = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax
+jax.devices()
+from repro.launch.mesh import make_host_mesh
+from repro.launch.train import train
+print([str(t) for t in make_host_mesh(2).axis_types])
+try:
+    train("mamba2-130m", steps=2, batch=4, seq=32, model_parallel=2)
+    print("no error")
+except ValueError as e:
+    print("ValueError:", e)
+"""
+
+
+def test_reference_host_mesh_fault_is_pinned():
+    """The same fault in the reference's training driver: on a host of two
+    devices ``make_host_mesh(2)`` builds ``Explicit`` axes, so
+    ``repro.launch.train.train(model_parallel=2)`` raises at the step's
+    first sharding constraint (a (1, 1) mesh would not: ``make_host_mesh``
+    on one device). The port's ``train()`` runs such a mesh as a process
+    group (``tests/test_torch_sharded_train.py``)."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "PYTHONPATH": str(ROOT / "src")}
+    run = subprocess.run([sys.executable, "-c", HOST_MESH], env=env,
+                         capture_output=True, text=True, timeout=110,
+                         cwd=ROOT)
+    assert run.returncode == 0, run.stderr[-4000:]
+    types, result = run.stdout.strip().splitlines()[-2:]
+    assert "Explicit" in types
+    assert result.startswith("ValueError:") and "Auto axes" in result

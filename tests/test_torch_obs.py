@@ -524,3 +524,119 @@ def test_engine_exposition_byte_equal_to_reference(engines, scenario):
         == len(eng.shed_requests)
     assert samples[("tally_serving_retries_total", ())] == sum(
         r.attempt for r in eng.done + eng.shed_requests)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py phase 10 (e) under a fake clock: an outage with failover
+# ---------------------------------------------------------------------------
+
+# phase 10's traffic and budget: 12 requests of 6 new tokens at ``drive``'s
+# arrivals, a 6 s request budget, an outage of 1.5 budgets once half the
+# requests are in, a BE quantum of 0.45 s (phase 10 measures 0.4-0.5 s on
+# the H100); each prefill and decode step advances the clock by its cost
+E_REQUESTS, E_NEW, E_TIMEOUT, E_QUANTUM = 12, 6, 6.0, 0.45
+# (prefill s, decode step s): "one" keeps every first retry inside its
+# re-armed budget; "two" makes the retried requests and their hedge clones
+# (which race each other slot for slot) outlast it, so the last pairs time
+# out a second time, the engine idles behind their backoff and takes a
+# second BE quantum, as the failing card runs did (2 quanta, 2 or 4 shed)
+E_COSTS = {"one": (0.1, 0.05), "two": (0.2, 0.05)}
+
+
+def _failover(m, timeout, capacity):
+    """``launch.serve.failover_policies`` in package ``m``'s classes."""
+    return dict(retry=m["retry"](max_retries=3, backoff_base=0.1,
+                                 backoff_factor=2.0, jitter=0.25),
+                hedge=m["hedge"](min_delay=timeout / 2),
+                brownout=m["brownout"](queue_delay=3.0 * timeout,
+                                       min_capacity=max(1, capacity // 2),
+                                       exit_delay=1.5 * timeout))
+
+
+def _outage_with_failover(m, prefill_s, decode_s):
+    """``launch.serve.drive(chaos=True)``'s loop on a fake clock: the
+    arrivals of ``maf2_like_trace``, the prompt draw, the outage."""
+    from repro_torch.core.traffic import maf2_like_trace
+    clk, quanta, capacity = _FakeClock(), [], 4
+
+    def be():
+        quanta.append(clk.t)
+        clk.t += E_QUANTUM
+
+    eng = m["engine"](m["model"], m["params"],
+                      m["config"](capacity=capacity, max_len=48,
+                                  request_timeout=E_TIMEOUT),
+                      clock=clk, best_effort_hook=be,
+                      **_failover(m, E_TIMEOUT, capacity))
+
+    def costs(fn, s):
+        def call(*a):
+            clk.t += s
+            return fn(*a)
+        return call
+
+    eng._prefill = costs(eng._prefill, prefill_s)
+    eng._decode = costs(eng._decode, decode_s)
+    rng = np.random.default_rng(0)
+    arrivals = maf2_like_trace(duration=E_REQUESTS / 50.0 * 2,
+                               mean_rate=50.0, seed=0).arrivals[:E_REQUESTS]
+    submitted, stall_after = 0, E_REQUESTS // 2
+    while submitted < E_REQUESTS or eng.queue or eng.n_active:
+        while submitted < E_REQUESTS and arrivals[submitted] <= clk.t:
+            prompt = rng.integers(0, m["model"].cfg.vocab_size,
+                                  size=int(rng.integers(4, 12)))
+            eng.submit(prompt.astype(np.int32), max_new_tokens=E_NEW)
+            submitted += 1
+        if stall_after is not None and submitted >= stall_after:
+            stall_after = None
+            clk.t += 1.5 * E_TIMEOUT
+        if not eng.step():
+            clk.t += 0.001
+    return eng, quanta
+
+
+def test_failover_policies_are_the_scripts():
+    from repro_torch.launch.serve import failover_policies
+    port = dict(retry=RetryPolicy, hedge=HedgePolicy,
+                brownout=BrownoutPolicy)
+    assert failover_policies(E_TIMEOUT, 4) == tuple(
+        _failover(port, E_TIMEOUT, 4).values())
+
+
+@pytest.mark.parametrize("quanta", sorted(E_COSTS))
+def test_outage_with_failover_sheds_no_hedge_clone(engines, quanta):
+    """Phase 10 (e)'s flake, reproduced: when the retried requests and
+    their clones outlast the re-armed budget, a primary and its clone time
+    out in one pass (a clone keeps the deadline its primary had when it
+    spawned). The reference's engine sheds the clone, so (e) counts a shed
+    although all 12 requests are answered; the port withdraws it, and the
+    primary's second retry answers the request (ROADMAP Queue 3)."""
+    want = 1 if quanta == "one" else 2
+    runs = {label: _outage_with_failover(m, *E_COSTS[quanta])
+            for label, m in zip(("reference", "port"), engines)}
+    for label, (eng, q) in runs.items():
+        print(f"{quanta} quantum: {label} answered {len(eng.done)}, "
+              f"retries {sum(r.attempt for r in eng.done + eng.shed_requests)}"
+              f", BE quanta at {[round(t, 3) for t in q]}, shed "
+              + str([dict(rid=r.rid, hedge_of=r.hedge_of, attempt=r.attempt,
+                          deadline=round(r.deadline, 3),
+                          shed_at=round(r.done_t, 3))
+                     for r in eng.shed_requests]))
+        assert len(eng.done) == E_REQUESTS
+        assert len(q) == want
+    ref, port = runs["reference"][0], runs["port"][0]
+    assert port.shed_requests == []
+    if quanta == "one":
+        assert ref.shed_requests == []
+        return
+    # every entry the reference sheds is a clone that never retried, shed
+    # at its deadline, whose primary was answered after a second retry
+    assert len(ref.shed_requests) == 2
+    answered = {r.rid: r for r in ref.done}
+    for clone in ref.shed_requests:
+        assert clone.hedge_of is not None and clone.attempt == 0
+        assert clone.done_t >= clone.deadline
+        assert answered[clone.hedge_of].attempt == 2
+    # the port answers the same requests with the same retries
+    assert sorted((r.rid, r.attempt) for r in port.done) == sorted(
+        (r.rid, r.attempt) for r in ref.done)

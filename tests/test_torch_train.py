@@ -231,13 +231,3 @@ def test_host_mesh_counts_processes_not_cards(monkeypatch):
     assert make_host_mesh(1, device="cuda").shape == (4, 1)
     assert make_host_mesh(2, device="cuda").shape == (2, 2)
     assert make_host_mesh(8, device="cuda").shape == (1, 4)
-
-
-def test_train_model_parallel_raises(monkeypatch):
-    """A mesh of more than one process is refused: sharded training is
-    not ported, and the step would otherwise run whole on every rank."""
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="2 processes"):
-        train("mamba2-130m", steps=1, batch=2, seq=32, model_parallel=2,
-              device="cpu")
