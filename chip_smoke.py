@@ -108,10 +108,27 @@ Phases, each raising on failure:
      tensors, all-reduces only); every loss within SHARDED_LOSS_TOL of
      ``train()`` in one process, each rank's argument bytes equal to the
      dry run's for the mesh, every shard on the card. No kernel runs: the
-     train step runs torch ops (``use_pallas`` training is refused).
+     train step runs torch ops (``use_pallas`` training is refused);
+ 13. the serving steps sharded over a mesh of processes, tensor-parallel
+     on the model axis (``make_prefill_step`` / ``make_decode_step``'s
+     ``sharded_fn``): qwen2.5-14b whole in bf16 on (1, 2) and mamba2-130m
+     whole on (1, 2) and (2, 1), two ranks of one gloo group on
+     ``cuda:0`` (``chip_smoke.py --sharded-serving JOB``, which starts
+     the ranks, each ``--sharded-serving-rank JOB``), each drawing only
+     its shards, on phase 9's traffic; against one process running the
+     same steps on the same weights here first: each layer from one
+     input (prefill and decode outputs, the cache at the rank's
+     positions, the decode token's row) within PLAIN_TOL, the rest of the
+     cache passed through; the first PLAIN_LAYERS layers through the
+     kernels within PLAIN_TOL of their plain versions on the same shards
+     (the MLP's matmuls with the f32 partial, flash and the SSD at shard
+     shapes); argument bytes equal to the dry run's, peak memory below the
+     shards plus one whole leaf plus the step's temporaries, every kernel
+     launched at a shard's shape (the MLP's matmuls at N or K = d_ff / 2,
+     flash and the SSD on half the heads).
 ``python3 chip_smoke.py --gloo-probe`` lists which collectives gloo
 carries on CUDA tensors in the card's torch (a pair of ranks each).
-Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9 and 10 each zero the launch counts
+Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9, 10 and 13 each zero the launch counts
 before their path and read them after; every entry point of the path must
 have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
 line before the last is the kernels' JSON summary, the last line ``{"ok":
@@ -216,6 +233,15 @@ OBS_TIMEOUT_FLOOR = 6.0
 # train()'s 3e-3 the whole model's loss jumps (11.27, 13.06, 9.33 in its
 # first steps on an H100), which magnifies any change in the sums' order
 SHARDED_STEPS, SHARDED_LOSS_TOL, SHARDED_LR = 5, 1e-2, 3e-4
+# phase 13: the serving steps sharded over two ranks of one gloo group on
+# the one card, tensor-parallel on the model axis, on phase 9's traffic
+# (STEPS_BATCH prompts of STEPS_PROMPT tokens, STEPS_NEW decode steps
+# against a cache of STEPS_CAPACITY, so that on (1, 2) the decode writes
+# land in rank 1's half, just past the boundary): each arch whole, on
+# its meshes; each layer from one input within PLAIN_TOL of one process,
+# and the first PLAIN_LAYERS within PLAIN_TOL of the plain versions
+SHARDED_SERVING = (("qwen2.5-14b", ((1, 2),)),
+                   ("mamba2-130m", ((1, 2), (2, 1))))
 # phase 11: the dry run's cells, one shape per family on both production
 # meshes (the whole sweep, some 3 min on a CPU, is the CLI's: ``python -m
 # repro_torch.launch.dryrun --all --mesh both``), and a deepseek-coder-33b
@@ -1023,6 +1049,18 @@ def traced_as(owner, name: str):
         setattr(owner, name, fn)
 
 
+def kernel_rows(prof, span=None):
+    """The kernels' own events of a ``torch.profiler`` trace as (ms, count,
+    name), largest first (an operator's self device time repeats its
+    kernels' time; a range's device-side annotation, ``span``, is not a
+    kernel)."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key != span),
+                  reverse=True)
+
+
 def profile_once(label, fn, dev, span=None):
     """``fn`` timed on the host clock (after one warm-up call) and traced
     by torch.profiler: device-busy time (the kernels' summed self time),
@@ -1047,12 +1085,7 @@ def profile_once(label, fn, dev, span=None):
         fn()
         synchronize(dev)
         traced = time.monotonic() - t
-    # the kernels' own events (an operator's self device time repeats its
-    # kernels' time; a range's device-side annotation is not a kernel)
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.key != span),
-                  reverse=True)
+    rows = kernel_rows(prof, span)
     busy = sum(r[0] for r in rows)
     if not rows:
         print(f"  {label}: {bare * 1e3:.2f} ms; device time not measured "
@@ -3032,8 +3065,589 @@ def sharded_phase(arch, dev, reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the serving steps sharded over a mesh of processes
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def recorded_launch_shapes():
+    """Within the block, the shapes of every kernel descriptor the model's
+    ``kernels.ops`` calls build: {"matmul": {(M, K, N)}, "flash": {(BH, S,
+    T, D, G)}, "ssd": {(B, S, NH, HD, DS)}}."""
+    from repro_torch.kernels import ops
+    seen = {"matmul": set(), "flash": set(), "ssd": set()}
+    names = {"matmul": "matmul_desc", "flash": "flash_attention_desc",
+             "ssd": "mamba2_scan_desc"}
+    orig = {k: getattr(ops, n) for k, n in names.items()}
+
+    def recorder(key):
+        def desc(*args, **kw):
+            seen[key].add(tuple(a for a in args[:5] if isinstance(a, int)))
+            return orig[key](*args, **kw)
+        return desc
+    for k, n in names.items():
+        setattr(ops, n, recorder(k))
+    try:
+        yield seen
+    finally:
+        for k, n in names.items():
+            setattr(ops, n, orig[k])
+
+
+def launch_shapes_gate(cfg, shapes, rows: int, model_size: int) -> bool:
+    """Every launch at a shard's shape: the MLP's matmuls with N or K =
+    d_ff / model_size, flash attention and the SSD scan with 1 /
+    model_size of the heads over the rank's ``rows``."""
+    ok = bool(shapes["matmul"] or shapes["flash"] or shapes["ssd"])
+    if cfg.family == "ssm":
+        nh = cfg.ssm.num_heads(cfg.d_model) // model_size
+        return ok and bool(shapes["ssd"]) and all(
+            b == rows and h == nh for b, _, h, _, _ in shapes["ssd"])
+    f, hq = cfg.d_ff // model_size, cfg.num_heads // model_size
+    return (ok and bool(shapes["matmul"]) and bool(shapes["flash"])
+            and all(n == f or k == f for _, k, n in
+                    (s[:3] for s in shapes["matmul"]))
+            and all(bh == rows * hq and g == cfg.q_per_kv
+                    for bh, _, _, _, g in shapes["flash"]))
+
+
+def device_busy_ms(fn, dev, top=4):
+    """The device events' summed time in one traced call of ``fn`` (the
+    kernels and gloo's copies between card and host, ``kernel_rows``) and
+    the ``top`` events by time as [name, ms, count]; (None, []) off the
+    card or where the trace saw none."""
+    if dev.type != "cuda":
+        return None, []
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize(dev)
+    rows = kernel_rows(prof)
+    ms = sum(r[0] for r in rows)
+    return (ms or None), [[k[:60], round(t, 3), n] for t, n, k in rows[:top]]
+
+
+def serving_layers(model, params, x, d, prompt, capacity, ctx_pre=None,
+                   ctx_dec=None, relay=None):
+    """Each layer from one input, prefill then decode (``_sublayer``):
+    yields (i, layer parameters, the prefill's ``_sublayer`` outputs, the
+    decode's, the decode's cache entry) with ``x(i)`` and ``d(i)`` the
+    layer's inputs. The prefill's k/v (with a leading layer dim) are
+    padded to ``capacity`` through ``relay`` (``pad_cache`` by default; a
+    sharded cache's reshard) for the decode token at ``prompt``."""
+    from repro_torch.models.transformer import _layer, pad_cache
+    pre = ctx_pre or contextlib.nullcontext
+    dec = ctx_dec or contextlib.nullcontext
+    relay = relay or (lambda t, n: pad_cache({"k": t}, n)["k"])
+    for i in range(model.cfg.num_layers):
+        lp = _layer(params["layers"]["p0"], i)
+        with pre():
+            out = model._sublayer(0, lp, x(i), collect_cache=True)
+        new = out[3]
+        if "k" in new:
+            entry = tuple(relay(new[k][None], capacity)[0]
+                          for k in ("k", "v"))
+        else:
+            entry = (new["conv_state"], new["ssm_state"])
+        with dec():
+            dout = model._sublayer(0, lp, d(i), cache=entry,
+                                   cache_index=prompt)
+        yield i, lp, out, dout, entry
+
+
+def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
+                              lw_rows, path):
+    """Phase 13's one process: ``cfg`` whole (drawn as the ranks draw it)
+    through the serving steps on the (1, 1) mesh, phase 9's traffic; and
+    the layer chain the ranks hold theirs against, saved to ``path``: the
+    first ``lw_rows`` prompts' embedding, each layer's prefill output and
+    cache entries, the decode token's input and each layer's decode output
+    and written cache (the k/v row at ``prompt``, or the ssm states).
+    Returns the readings and the tokens."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.device import synchronize
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.transformer import build_model, pad_cache
+    model = build_model(cfg)
+    mesh = Mesh(("data", "model"), (1, 1), dev.type)
+    t0 = time.monotonic()
+    params = model.init(SEED, device=dev, dtype=cfg.dtype)
+    synchronize(dev)
+    drawn = time.monotonic() - t0
+    toks = sharded_serving_tokens(cfg, batch, prompt, dev)
+    pre = make_prefill_step(model, mesh, ShapeConfig("prefill", prompt,
+                                                     batch, "prefill"))
+    dec = make_decode_step(model, mesh, ShapeConfig("decode", capacity,
+                                                    batch, "decode"))
+    pre.fn(params, {"tokens": toks})                  # warm-up
+    synchronize(dev)
+    t = time.monotonic()
+    logits, cache = pre.fn(params, {"tokens": toks})
+    synchronize(dev)
+    prefill_s = time.monotonic() - t
+    first = logits[:, -1].float()
+    out = [logits[:, -1].argmax(dim=-1)]
+    kv = pad_cache(cache, capacity)
+    del cache
+    t = time.monotonic()
+    for i in range(steps):
+        logits, kv = dec.fn(params, {
+            "tokens": out[-1][:, None].to(torch.int32), "cache": kv,
+            "cache_index": torch.tensor(prompt + i, dtype=torch.int32)})
+        out.append(logits[:, -1].argmax(dim=-1))
+    synchronize(dev)
+    decode_s = time.monotonic() - t
+    del kv, logits
+    x0 = model.embed_tokens(params, toks[:lw_rows].long())
+    d0 = model.embed_tokens(params, out[0][:lw_rows, None].long())
+    chain = {"x0": x0.cpu(), "d0": d0.cpu(), "y": [], "new": [], "dy": [],
+             "dnew": []}
+    xs, ds = [x0], [d0]
+    for i, _, pre_out, dec_out, _ in serving_layers(
+            model, params, lambda i: xs[i], lambda i: ds[i], prompt,
+            capacity):
+        y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
+        xs.append(y)
+        ds.append(dy)
+        chain["y"].append(y.cpu())
+        chain["new"].append({k: v.cpu() for k, v in new.items()})
+        chain["dy"].append(dy.cpu())
+        chain["dnew"].append({k: (v[:, prompt] if k in ("k", "v") else v)
+                              .cpu() for k, v in dnew.items()})
+        xs[i] = ds[i] = None
+    torch.save(chain, path)
+    del params, xs, ds, chain
+    return {"first_logits": first.cpu(), "tokens": torch.stack(
+                out, dim=1).cpu(), "prefill_ms": prefill_s * 1e3,
+            "tokens_per_s": batch * steps / decode_s, "drawn_s": drawn}
+
+
+def sharded_serving_tokens(cfg, batch, prompt, dev):
+    rng = np.random.default_rng(SEED + 13)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        size=(batch, prompt)),
+                           dtype=torch.int32, device=dev)
+
+
+def sharded_serving_rank(job_path: str) -> int:
+    """``chip_smoke.py --sharded-serving-rank JOB``: one rank of phase 13
+    (its process group from ``run_ranks``'s environment). Draws its
+    shards, holds each layer from one input against the one-process
+    chain in the job's file, then drives the sharded prefill and decode
+    steps (launch counts zeroed just before, read just after) and traces
+    one more prefill; prints its readings as one JSON line."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import ShapeConfig, get_config, kv_cache_specs
+    from repro_torch.device import synchronize
+    from repro_torch.distributed.sharding import (LOCAL, ModelAxis,
+                                                  NamedSharding,
+                                                  PartitionSpec, ShardGroup,
+                                                  entry_axes, use_model_axis)
+    from repro_torch.launch.mesh import Mesh, init_from_env
+    from repro_torch.launch.steps import (cache_layout, decode_cache,
+                                          init_serving_shards,
+                                          make_decode_step, make_prefill_step,
+                                          reshard_cache_leaf)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_leaves, tree_map
+    with open(job_path) as f:
+        job = json.load(f)
+    init_from_env(job["timeout_s"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(job["arch"])
+    cfg = dataclasses.replace(cfg.reduced() if job["reduced"] else cfg,
+                              use_pallas=True)
+    mesh = Mesh(("data", "model"), tuple(job["mesh"]), job["device"])
+    group = ShardGroup(mesh)
+    dev = group.device
+    if dev.type == "cuda":
+        kernels.build_all()
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    B, S, T, steps = job["batch"], job["prompt"], job["capacity"], job["steps"]
+    model = build_model(cfg)
+    pre = make_prefill_step(model, mesh, ShapeConfig("prefill", S, B,
+                                                     "prefill"), group)
+    dec = make_decode_step(model, mesh, ShapeConfig("decode", T, B,
+                                                    "decode"), group)
+    t = time.monotonic()
+    params = init_serving_shards(model, pre, group, SEED)
+    synchronize(dev)
+    init_s = time.monotonic() - t
+    local = tree_leaves(params)
+    shard_bytes = sum(p.to_local().numel() * p.to_local().element_size()
+                      for p in local)
+    b_sh = pre.in_shardings[1]
+    toks = sharded_serving_tokens(cfg, B, S, dev)
+    batch = group.layout({"tokens": toks}, b_sh)
+    nbytes = {"prefill": shard_bytes + sum(
+        t.to_local().numel() * 4 for t in batch.values())}
+
+    # -- each layer from one input, against the one-process chain ----------
+    chain = torch.load(job["chain"], map_location=dev)
+    lw = chain["x0"].shape[0]
+    data = entry_axes(b_sh["tokens"].spec[0])
+    rows = group.slices(NamedSharding(mesh, PartitionSpec(data or None)),
+                        (lw,))[0]
+    size = mesh.sizes["model"]
+    axes = [ModelAxis(group, **cache_layout(sh)) if size > 1 else None
+            for sh in (pre.out_shardings[1], dec.in_shardings[1]["cache"])]
+    pre_specs = kv_cache_specs(cfg, lw, S)
+    dec_specs = kv_cache_specs(cfg, lw, T)
+
+    def part(key, specs, sh):
+        """This rank's slice of one layer's cache entry ``key``."""
+        return group.slices(sh[key], specs[key][0])[1:]
+
+    def relay(t, capacity):
+        """The prefill's k or v in the decode step's layout (the reshard
+        that ``decode_cache`` runs between the steps)."""
+        return reshard_cache_leaf(t, pre.out_shardings[1]["k"],
+                                  dec.in_shardings[1]["cache"]["k"],
+                                  axes[0] or LOCAL, capacity)
+
+    errs = {"prefill": 0.0, "prefill_cache": 0.0, "decode": 0.0,
+            "decode_cache": 0.0}
+    plain_errs = {}           # mixer, mlp (where a layer has one), ...
+    passed_through = True
+    lparams = tree_map(lambda t: t.to_local(), params)
+    xs = {0: chain["x0"][rows]}
+    ds = {0: chain["d0"][rows]}
+    for i, lp, pre_out, dec_out, entry in serving_layers(
+            model, lparams, lambda i: xs[i], lambda i: ds[i], S, T,
+            lambda: use_model_axis(axes[0]), lambda: use_model_axis(axes[1]),
+            relay):
+        y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
+        if i < PLAIN_LAYERS:
+            # the same layer with the kernels' plain versions (phase 9's
+            # gate (c)) on the same shards, inside the same ModelAxis,
+            # from the same inputs
+            with use_model_axis(axes[0]), plain_versions():
+                p_out = model._sublayer(0, lp, xs[i], collect_cache=True)
+            with use_model_axis(axes[1]), plain_versions():
+                p_dout = model._sublayer(0, lp, ds[i], cache=entry,
+                                         cache_index=S)
+            for k, got, want in (("mixer", pre_out[1], p_out[1]),
+                                 ("mlp", pre_out[2], p_out[2]),
+                                 ("prefill", y, p_out[0]),
+                                 ("decode", dy, p_dout[0])):
+                if want is not None:
+                    plain_errs[k] = max(plain_errs.get(k, 0.0),
+                                        rel_err(got, want))
+            del p_out, p_dout
+        errs["prefill"] = max(errs["prefill"],
+                              rel_err(y, chain["y"][i][rows]))
+        errs["decode"] = max(errs["decode"],
+                             rel_err(dy, chain["dy"][i][rows]))
+        for k, v in new.items():
+            want = chain["new"][i][k][part(k, pre_specs, pre.out_shardings[1])]
+            errs["prefill_cache"] = max(errs["prefill_cache"],
+                                        rel_err(v, want))
+        for k, v in dnew.items():
+            if k in ("k", "v"):
+                sl = part(k, dec_specs, dec.in_shardings[1]["cache"])
+                owner = sl[1].start <= S < sl[1].stop
+                old = entry[("k", "v").index(k)]
+                if owner:
+                    at = S - sl[1].start
+                    errs["decode_cache"] = max(errs["decode_cache"], rel_err(
+                        v[:, at], chain["dnew"][i][k][sl[0], sl[2]]))
+                    keep = torch.cat([v[:, :at], v[:, at + 1:]], dim=1)
+                    kept = torch.cat([old[:, :at], old[:, at + 1:]], dim=1)
+                else:
+                    keep, kept = v, old
+                passed_through &= torch.equal(keep, kept)
+            else:
+                want = chain["dnew"][i][k][part(k, dec_specs,
+                                                dec.in_shardings[1]["cache"])]
+                errs["decode_cache"] = max(errs["decode_cache"],
+                                           rel_err(v, want))
+        xs[i + 1], ds[i + 1] = chain["y"][i][rows], chain["dy"][i][rows]
+        del xs[i], ds[i]
+    del chain, xs, ds
+
+    # -- the main path: the sharded steps, counted -------------------------
+    for fam in kernels.FAMILIES:
+        fam.reset_counts()
+    comm0 = group.comm_s
+    with recorded_launch_shapes() as shapes:
+        synchronize(dev)
+        t = time.monotonic()
+        logits, cache = pre.sharded_fn(params, batch)
+        synchronize(dev)
+        prefill_s = time.monotonic() - t
+        prefill_comm = group.comm_s - comm0
+        first = group.gather(logits, pre.out_shardings[0])[:, -1].float()
+        out = [first.argmax(dim=-1)]
+        kv = decode_cache(cache, pre, dec, group)
+        del cache
+        d_sh = dec.in_shardings[1]
+        comm0, step_s = group.comm_s, []
+        for i in range(steps):
+            t = time.monotonic()
+            db = group.layout(
+                {"tokens": out[-1][:, None].to(torch.int32)},
+                {"tokens": d_sh["tokens"]})
+            db.update(cache=kv, cache_index=torch.tensor(
+                S + i, dtype=torch.int32))
+            if i == 0:
+                nbytes["decode"] = shard_bytes + sum(
+                    v.to_local().numel() * v.to_local().element_size()
+                    for v in tree_leaves((db["tokens"], kv))) + 4 * (
+                        "k" in kv)
+            logits, kv = dec.sharded_fn(params, db)
+            out.append(group.gather(logits, dec.out_shardings[0])[:, -1]
+                       .argmax(dim=-1))
+            synchronize(dev)
+            step_s.append(time.monotonic() - t)
+        decode_comm = group.comm_s - comm0
+    launches = {k: v for fam in kernels.FAMILIES
+                for k, v in fam.launches.items()}
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    del kv, logits
+    device_ms, device_top = device_busy_ms(
+        lambda: pre.sharded_fn(params, batch), dev)
+    torch.save({"first_logits": first.cpu()},
+               f"{job['out']}.{group.rank}.pt")
+    print(json.dumps({
+        "rank": group.rank, "mesh": list(mesh.shape), "coords": group.coords,
+        "devices": sorted({str(p.to_local().device) for p in local}),
+        "init_s": init_s, "shard_bytes": shard_bytes, "bytes": nbytes,
+        "peak": peak, "errs": errs, "plain_errs": plain_errs,
+        "passed_through": passed_through,
+        "shapes_ok": launch_shapes_gate(cfg, shapes, len(range(
+            *group.slices(NamedSharding(mesh, PartitionSpec(data or None)),
+                          (B,))[0].indices(B))), size),
+        "shapes": {k: sorted(v) for k, v in shapes.items()},
+        "prefill_ms": prefill_s * 1e3, "prefill_comm_ms": prefill_comm * 1e3,
+        "prefill_device_ms": device_ms, "prefill_device_top": device_top,
+        "tokens_per_s": B * steps / sum(step_s),
+        "decode_comm_ms": decode_comm * 1e3,
+        "tokens": torch.stack(out, dim=1).tolist(), "launches": launches}))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_serving_main(job_path: str) -> int:
+    """``chip_smoke.py --sharded-serving JOB``: phase 13's ranks, two
+    processes of one gloo group (``run_ranks``, each
+    ``--sharded-serving-rank JOB``); prints their JSON lines as one list,
+    or exits 1 with a failed rank's errors."""
+    from repro_torch.launch.mesh import run_ranks
+    with open(job_path) as f:
+        job = json.load(f)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ranks = run_ranks([sys.executable, str(Path(__file__).resolve()),
+                       "--sharded-serving-rank", job_path],
+                      math.prod(job["mesh"]), job["timeout_s"], env=env,
+                      cwd=str(ROOT))
+    for r, (code, out, err) in enumerate(ranks):
+        if code != 0:
+            print(f"rank {r} exited {code}:\n{out[-2000:]}\n{err[-6000:]}",
+                  file=sys.stderr)
+            return 1
+    print(json.dumps([json.loads(out.strip().splitlines()[-1])
+                      for _, out, _ in ranks]))
+    return 0
+
+
+def sharded_serving_phase(dev, archs=SHARDED_SERVING, reduced=False,
+                          batch=STEPS_BATCH, prompt=STEPS_PROMPT,
+                          capacity=STEPS_CAPACITY, steps=STEPS_NEW,
+                          timeout_s=600.0):
+    """Phase 13: the serving steps' ``sharded_fn`` on each mesh of
+    ``archs`` (two ranks of one gloo group, both on ``dev``: ``cuda:0`` on
+    the card), on the use_pallas path, against one process running the
+    same steps on the same weights (``sharded_serving_reference``, run
+    here first and freed). Gates, for every rank: each layer from one
+    input, prefill and decode outputs and cache (the k/v at the rank's
+    positions, the row the decode token writes, the ssm states) within
+    PLAIN_TOL of one process, the rest of the cache passed through; the
+    first PLAIN_LAYERS layers' mixer, MLP and outputs through the kernels
+    within PLAIN_TOL of the same layers through their plain versions, on
+    the same shards inside the same ModelAxis, from the same inputs;
+    argument bytes equal ``dryrun.price``'s for the mesh; peak memory
+    below its shards plus the largest leaf in f32 (a draw holds at most
+    that) plus the dry run's temporaries and outputs, and below the whole
+    model where the weights outweigh those; every launch at a shard's
+    shape; every kernel family of the path launched. Printed:
+    host and device ms of a prefill per rank, the collectives' share,
+    decode tokens/s, the full-depth first logits and greedy tokens
+    beside one process. Returns the ranks' summed launch counts; raises
+    at the end if a kernel of a path launched no time (as on the CPU,
+    where the plain versions launch nothing)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import (serving_param_shapes,
+                                          serving_param_shardings)
+    from repro_torch.models.transformer import build_model
+    from repro_torch.tree import tree_leaves
+    t0 = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    where = f"{dev.type}:0" if dev.type == "cuda" else "cpu"
+    total, missed = {}, {}
+    for arch, meshes in archs:
+        base = get_config(arch)
+        cfg = dataclasses.replace(base.reduced() if reduced else base,
+                                  use_pallas=True)
+        lw_rows = max(m[0] for m in meshes)
+        with tempfile.TemporaryDirectory(prefix="phase13-") as tmp:
+            chain = os.path.join(tmp, "chain.pt")
+            one = sharded_serving_reference(cfg, dev, batch, prompt,
+                                            capacity, steps, lw_rows, chain)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            shapes = serving_param_shapes(build_model(cfg))
+            leaves = tree_leaves(shapes)
+            whole = sum(t.numel() * t.element_size() for t in leaves)
+            largest = max(t.numel() * t.element_size() for t in leaves)
+            # a leaf is drawn in f32 (at most the whole leaf at once)
+            draw = max(t.numel() * 4 for t in leaves)
+            print(f"  {cfg.name}: {cfg.num_layers} layers, d_model "
+                  f"{cfg.d_model}, {whole / 2 ** 30:.2f} GiB of "
+                  f"{cfg.dtype} weights (largest leaf "
+                  f"{largest / 2 ** 30:.2f} GiB); one process on {where}: "
+                  f"drawn in {one['drawn_s']:.1f} s, a {batch} x {prompt} "
+                  f"prefill {one['prefill_ms']:.1f} ms (host clock), "
+                  f"{steps} decode steps {one['tokens_per_s']:.1f} "
+                  f"tokens/s; greedy tokens {one['tokens'].tolist()}",
+                  flush=True)
+            for shape in meshes:
+                mesh = Mesh(("data", "model"), shape, dev.type)
+                priced = {k: dryrun.price(
+                    dataclasses.replace(cfg, use_pallas=False),
+                    ShapeConfig(k, n, batch, k), mesh)
+                          for k, n in (("prefill", prompt),
+                                       ("decode", capacity))}
+                want = {k: v["memory"]["argument_size_in_bytes"]
+                        for k, v in priced.items()}
+                temps = max(v["memory"]["temp_size_in_bytes"]
+                            + v["memory"]["output_size_in_bytes"]
+                            for v in priced.values())
+                shs = tree_leaves(serving_param_shardings(
+                    build_model(cfg).param_axes(), shapes, mesh))
+                shard = sum(math.prod(s.shard_shape(t.shape))
+                            * t.element_size() for t, s in zip(leaves, shs))
+                job = os.path.join(tmp, f"job_{shape[0]}x{shape[1]}.json")
+                with open(job, "w") as f:
+                    json.dump({"arch": arch, "reduced": reduced,
+                               "mesh": list(shape), "device": dev.type,
+                               "batch": batch, "prompt": prompt,
+                               "capacity": capacity, "steps": steps,
+                               "chain": chain, "timeout_s": timeout_s,
+                               "out": os.path.join(tmp, "logits")}, f)
+                code, stdout, stderr = run_tree(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--sharded-serving", job], timeout_s + 60, env)
+                if code != 0:
+                    raise AssertionError(f"phase 13 {cfg.name} {shape}: the "
+                                         f"ranks exited {code}:\n"
+                                         f"{stderr[-6000:]}")
+                ranks = json.loads(stdout.strip().splitlines()[-1])
+                bound = shard + draw + temps
+                # below the whole model where the weights outweigh what a
+                # step and a draw hold beside them (not so for mamba2-130m)
+                whole_gate = shape[1] > 1 and whole > 2 * (draw + temps)
+                logit_err = max(rel_err(torch.load(
+                    os.path.join(tmp, f"logits.{r['rank']}.pt"))[
+                        "first_logits"], one["first_logits"])
+                    for r in ranks)
+                same = sum(r["tokens"] == one["tokens"].tolist()
+                           for r in ranks)
+                for r in ranks:
+                    e = r["errs"]
+                    peak_ok = r["peak"] is None or (
+                        r["peak"] < bound
+                        and not (whole_gate and r["peak"] >= whole))
+                    pe = r["plain_errs"]
+                    ok = (max(e.values()) <= PLAIN_TOL
+                          and max(pe.values()) <= PLAIN_TOL
+                          and r["passed_through"]
+                          and r["bytes"] == want and r["shard_bytes"] == shard
+                          and peak_ok and r["shapes_ok"]
+                          and r["devices"] == [where])
+                    peak = ("not measured" if r["peak"] is None else
+                            f"{r['peak'] / 2 ** 30:.2f} GiB [< shards "
+                            f"{shard / 2 ** 30:.2f} + the largest leaf in "
+                            f"f32 + the dry run's temporaries and outputs = "
+                            f"{bound / 2 ** 30:.2f} GiB"
+                            + (f", < the whole model's "
+                               f"{whole / 2 ** 30:.2f} GiB]" if whole_gate
+                               else "]"))
+                    dms = ("not measured" if r["prefill_device_ms"] is None
+                           else f"{r['prefill_device_ms']:.3f}")
+                    print(f"  {cfg.name} {shape} rank {r['rank']} "
+                          f"{r['coords']} on {r['devices']}: layer by layer "
+                          f"from one input against one process, prefill "
+                          f"{e['prefill']:.2e}, its cache "
+                          f"{e['prefill_cache']:.2e}, decode {e['decode']:.2e}"
+                          f", its written cache {e['decode_cache']:.2e} [<= "
+                          f"{PLAIN_TOL:g}], the rest passed through "
+                          f"{r['passed_through']}; the kernels against their "
+                          f"plain versions on the shards, {PLAIN_LAYERS} "
+                          f"layers: " + ", ".join(
+                              f"{k} {v:.2e}" for k, v in pe.items())
+                          + f" [<= {PLAIN_TOL:g}]; "
+                          f"bytes {r['bytes']}, dry "
+                          f"run {want}; peak {peak}; launches at shard "
+                          f"shapes {r['shapes_ok']}; shards drawn in "
+                          f"{r['init_s']:.1f} s; prefill "
+                          f"{r['prefill_ms']:.1f} ms host ({dms} ms device),"
+                          f" collectives {r['prefill_comm_ms']:.1f} ms "
+                          f"({r['prefill_comm_ms'] / r['prefill_ms']:.0%}); "
+                          f"decode {r['tokens_per_s']:.1f} tokens/s (one "
+                          f"process {one['tokens_per_s']:.1f}), collectives "
+                          f"{r['decode_comm_ms']:.1f} ms "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        raise AssertionError(
+                            f"phase 13 {cfg.name} {shape} rank {r['rank']}: "
+                            "a layer, a kernel against its plain version, "
+                            "the cache, the bytes, the peak, the launch "
+                            "shapes or the device disagree")
+                if ranks[0]["prefill_device_top"]:
+                    print(f"  {cfg.name} {shape} rank 0's prefill, top "
+                          f"device events [name, ms, count]: "
+                          f"{json.dumps(ranks[0]['prefill_device_top'])}",
+                          flush=True)
+                print(f"  {cfg.name} {shape}: full depth, first-token "
+                      f"logits against one process {logit_err:.2e} (not "
+                      f"gated: the random layers amplify the sums' order), "
+                      f"greedy tokens equal on {same} of {len(ranks)} ranks "
+                      f"(not gated); launch shapes "
+                      f"{json.dumps(ranks[0]['shapes'])}", flush=True)
+                launches = {}
+                for r in ranks:
+                    for k, v in r["launches"].items():
+                        launches[k] = launches.get(k, 0) + v
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                need = (("ssd_plain",) if cfg.family == "ssm"
+                        else ("matmul_plain", "flash_plain"))
+                print(f"  launches on {shape}, both ranks: "
+                      f"{ {k: launches[k] for k in need} }", flush=True)
+                cuda_core_guard(launches, f"sharded serving {shape}")
+                missed.update({f"{cfg.name} {shape} {k}": launches[k]
+                               for k in need if not launches[k]})
+    print(f"  phase 13 in {time.monotonic() - t0:.1f} s", flush=True)
+    if missed:
+        raise AssertionError(f"phase 13: the sharded steps' launches miss a "
+                             f"kernel of the path: {missed}")
+    return total
+
+
 GLOO_OPS = ("all_reduce/float32", "all_reduce/int64", "all_reduce/bfloat16",
-            "broadcast/float32", "all_gather/float32",
+            "broadcast/float32", "all_gather/float32", "all_gather/bfloat16",
             "all_gather_into_tensor/float32",
             "reduce_scatter_tensor/float32", "all_to_all_single/float32",
             "reduce/float32", "barrier/float32")
@@ -3285,6 +3899,14 @@ def main() -> int:
           "mamba2-130m whole, two ranks of one gloo group on the card, on "
           "(2, 1) and (1, 2)", flush=True)
     sharded_phase("mamba2-130m", dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("[13] the serving steps sharded over a mesh of processes, "
+          "tensor-parallel on the model axis: qwen2.5-14b whole in bf16 on "
+          "(1, 2), mamba2-130m whole on (1, 2) and (2, 1), two ranks of one "
+          "gloo group on the card", flush=True)
+    p_counts = sharded_serving_phase(dev)
 
     summary = []
     for fam, label, shape, route in lines:
@@ -3298,7 +3920,8 @@ def main() -> int:
                        "moe_serving": q_counts[name],
                        "whisper": w_counts[name],
                        "deepseek_steps": s_counts[name],
-                       "colocated_obs": o_counts[name]}
+                       "colocated_obs": o_counts[name],
+                       "sharded_serving": p_counts.get(name, 0)}
             summary.append({
                 "name": name, "route": "cuda", "tile_route": route,
                 "source": fam.source, "replaces": fam.replaces,
@@ -3320,4 +3943,8 @@ if __name__ == "__main__":
         sys.exit(gloo_probe_main())
     if sys.argv[1:2] == ["--gloo-probe-rank"]:
         sys.exit(gloo_probe_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-serving"]:
+        sys.exit(sharded_serving_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-serving-rank"]:
+        sys.exit(sharded_serving_rank(sys.argv[2]))
     sys.exit(main())

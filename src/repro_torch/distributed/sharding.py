@@ -19,8 +19,12 @@ inverse; ``mean_over`` averages over the batch's shards, and
 ``batch_mean`` hands that to the model; all by all-reduces on the
 default group (gloo carries those for CUDA tensors too). The train
 step runs so: storage sharded, compute on gathered tensors
-(``launch.steps``). ``constrain`` is the identity without a mesh or on
-one device, and raises on a larger one: nothing shards an intermediate.
+(``launch.steps``). The serving steps compute on shards: inside one,
+``model_axis()`` is this rank's ``ModelAxis`` (``use_model_axis``), and
+the layers run tensor-parallel on their local weights with its sum, max
+and all-gather over the model axis. ``constrain`` is the identity
+without a mesh, on one device and inside a ``ModelAxis`` (whose layers
+hold their shards already), and raises elsewhere on a larger mesh.
 """
 from __future__ import annotations
 
@@ -136,6 +140,7 @@ class _Ctx(threading.local):
         self.mesh: Optional[Mesh] = None
         self.rules: Dict[str, Any] = dict(DEFAULT_RULES)
         self.batch_mean: Optional[Callable] = None
+        self.model_axis: Optional["ModelAxis"] = None
 
 
 _CTX = _Ctx()
@@ -199,12 +204,13 @@ def constrain(x, *axes: Optional[str]):
     """Sharding-constrain an intermediate by logical axes.
 
     With no mesh, or a mesh of one device, ``x`` comes back as it is, as
-    the reference's does. A larger mesh raises: nothing in the port shards
-    an intermediate yet, and a tensor that holds the whole value on one
-    device is never passed through as if it were sharded.
+    the reference's does; inside a ``ModelAxis`` too, where ``x`` is this
+    rank's part already. Elsewhere a larger mesh raises: a tensor that
+    holds the whole value on one device is never passed through as if it
+    were sharded.
     """
     mesh = _CTX.mesh
-    if mesh is None or mesh.size == 1:
+    if mesh is None or mesh.size == 1 or _CTX.model_axis is not None:
         return x
     raise NotImplementedError(
         f"constrain{axes} on a mesh of {mesh.size} devices: sharding an "
@@ -358,18 +364,24 @@ class ShardGroup:
         return [t / n for t in self._sum([tuple(t.shape) for t in tensors],
                                          [t.dtype for t in tensors], fill)]
 
+    def wrap(self, shard: torch.Tensor, sharding: NamedSharding,
+             shape: Sequence[int]):
+        """This rank's ``shard`` of a tensor of ``shape`` as a ``DTensor``
+        on the mesh; the shard must have ``sharding``'s shard shape."""
+        from torch.distributed.tensor import DTensor
+        if tuple(shard.shape) != sharding.shard_shape(shape):
+            raise ValueError(f"a shard of {tuple(shard.shape)} is not "
+                             f"{sharding.spec}'s of {tuple(shape)}")
+        return DTensor.from_local(
+            shard, self.device_mesh, sharding.placements(), run_check=False,
+            shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+
     def layout(self, tree, shardings):
         """``tree`` (whole tensors, equal on every rank) as ``DTensor``s on
         the mesh, each rank storing its shard on its device."""
-        from torch.distributed.tensor import DTensor
-
-        def one(t, sharding):
-            shard = self.local(t.to(self.device), sharding)
-            return DTensor.from_local(
-                shard, self.device_mesh, sharding.placements(),
-                run_check=False, shape=t.shape,
-                stride=torch.empty(t.shape, device="meta").stride())
-        return tree_map(one, tree, shardings)
+        return tree_map(lambda t, s: self.wrap(
+            self.local(t.to(self.device), s), s, t.shape), tree, shardings)
 
     def gather(self, tree, shardings):
         """The whole value of each ``DTensor`` of ``tree``, on every rank,
@@ -386,3 +398,102 @@ class ShardGroup:
         return tree_unflatten(treedef, self._sum(
             [tuple(t.shape) for t in leaves], [t.dtype for t in leaves],
             fill))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel compute inside a sharded serving step
+# ---------------------------------------------------------------------------
+
+_WIDE = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
+
+
+class LocalAxis:
+    """The model axis of one device: size 1, every collective the
+    identity, the cache whole. The layers run one body on it and on a
+    ``ModelAxis``."""
+    size, index, kv, conv = 1, 0, None, False
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x
+
+    def mine(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+        """This rank's ``n`` entries of ``x`` along ``dim``, of a split in
+        the axis's order."""
+        return x.narrow(dim, self.index * n, n)
+
+
+LOCAL = LocalAxis()
+
+
+class ModelAxis(LocalAxis):
+    """This rank's part of the model axis inside a sharded serving step:
+    its ``size`` and ``index`` on the axis, how the serving cache is laid
+    out over it, and a sum, a max and an all-gather over the ranks that
+    differ only along it (``group.device_mesh.get_group("model")``), whose
+    host seconds add to ``group.comm_s``. 16-bit floats sum in f32 (a sum
+    of partial products is rounded once); a gather carries a tensor in
+    its own dtype. ``kv`` is the k/v cache's split over the axis:
+    ``"seq"`` (positions), ``"heads"`` (kv heads) or None (whole on every
+    rank); ``conv`` whether ``conv_state``'s channels are split."""
+
+    def __init__(self, group: ShardGroup, kv: Optional[str] = None,
+                 conv: bool = False):
+        self.group = group
+        self.size = group.mesh.sizes["model"]
+        self.index = group.coords["model"]
+        self.kv, self.conv = kv, conv
+        self._pg = group.device_mesh.get_group("model")
+
+    def _run(self, fn, x):
+        t0 = time.monotonic()
+        out = fn(x)
+        self.group.comm_s += time.monotonic() - t0
+        return out
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        def run(x):
+            wire = x.to(_WIDE.get(x.dtype, x.dtype)).contiguous()
+            if wire.data_ptr() == x.data_ptr():
+                wire = wire.clone()
+            torch.distributed.all_reduce(wire, op=op, group=self._pg)
+            return wire.to(x.dtype)
+        return self._run(run, x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model axis, in ``x``'s dtype."""
+        return self._reduce(x, torch.distributed.ReduceOp.SUM)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, torch.distributed.ReduceOp.MAX)
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in their order on
+        the axis."""
+        def run(x):
+            x = x.contiguous()
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            torch.distributed.all_gather(parts, x, group=self._pg)
+            return torch.cat(parts, dim)
+        return self._run(run, x)
+
+
+def model_axis() -> Optional[ModelAxis]:
+    """The ``ModelAxis`` of the sharded step running on this thread, or
+    None: on one device the layers run on whole tensors (``LOCAL``)."""
+    return _CTX.model_axis
+
+
+@contextlib.contextmanager
+def use_model_axis(axis: Optional[ModelAxis]):
+    prev = _CTX.model_axis
+    _CTX.model_axis = axis
+    try:
+        yield
+    finally:
+        _CTX.model_axis = prev

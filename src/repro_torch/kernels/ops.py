@@ -2,6 +2,8 @@
 its ``use_pallas`` path (ports of ``repro.kernels.ops``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.descriptor import build_plain
@@ -11,14 +13,17 @@ from repro_torch.kernels.matmul import matmul_desc
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 128,
-           bk: int = 512, bn: int = 128) -> torch.Tensor:
-    """a (..., M, K) @ b (K, N) through the matmul kernel; output a.dtype."""
+           bk: int = 512, bn: int = 128,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a (..., M, K) @ b (K, N) through the matmul kernel; output in
+    ``out_dtype``, a.dtype by default (the kernel's sums are f32: a
+    partial product summed across ranks keeps them)."""
     *lead, M, K = a.shape
     N = b.shape[-1]
     a2 = a.reshape(-1, K).contiguous()
     desc = matmul_desc(a2.shape[0], K, N, a.dtype, bm=bm, bk=bk, bn=bn)
     out = build_plain(desc)(a2, b.contiguous())[0]
-    return out.reshape(*lead, M, N).to(a.dtype)
+    return out.reshape(*lead, M, N).to(out_dtype or a.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -18,9 +18,11 @@ microbatches summed and divided by their count, the schedule read at
 (one per device) it takes its inputs as ``DTensor``s laid out by its
 ``in_shardings`` (``ShardGroup.layout``) and returns them so: storage
 follows the reference's shardings, compute runs on gathered tensors (see
-``make_train_step``). The serving steps run on one device only; they hold
-the weights in the model dtype (``serving_param_shapes``), not as f32
-masters.
+``make_train_step``). The serving steps hold the weights in the model
+dtype (``serving_param_shapes``), not as f32 masters; on a mesh of more
+than one process their ``sharded_fn`` computes on the shards,
+tensor-parallel over the model axis (``sharding.ModelAxis``), for the
+dense, vlm and ssm families (``sharded_serving``).
 """
 from __future__ import annotations
 
@@ -33,14 +35,16 @@ import torch
 from repro_torch.configs.base import (ModelConfig, ShapeConfig, input_specs,
                                       kv_cache_specs)
 from repro_torch.distributed.sharding import (DEFAULT_RULES,
-                                              INFER_PARAM_RULES, PARAM_RULES,
+                                              INFER_PARAM_RULES, LOCAL,
+                                              PARAM_RULES, ModelAxis,
                                               NamedSharding, PartitionSpec,
-                                              ShardGroup, entry_axes,
-                                              is_axes_leaf,
+                                              ShardGroup,
+                                              entry_axes, is_axes_leaf,
                                               logical_to_spec, tree_shardings,
-                                              use_batch_mean)
+                                              use_batch_mean, use_model_axis)
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models.transformer import TransformerLM, build_model, loss_fn
+from repro_torch.models.transformer import (TransformerLM, build_model,
+                                           loss_fn, pad_cache)
 from repro_torch.optim.adafactor import (AdafactorConfig, adafactor_init,
                                          adafactor_slot_axes,
                                          adafactor_slot_shapes,
@@ -345,9 +349,92 @@ def _logits_sharding(cfg: ModelConfig, mesh: Mesh,
         shape=(shape.global_batch, 1, cfg.vocab_size)))
 
 
+# families whose serving steps run tensor-parallel on a mesh of processes
+SHARDED_SERVING_FAMILIES = ("dense", "vlm", "ssm")
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def cache_layout(cache_sh) -> Dict[str, Any]:
+    """``ModelAxis``'s cache keywords from the cache's shardings: the
+    k/v cache split over positions ("seq"), kv heads ("heads") or
+    neither; conv_state's channels split or not."""
+    def on_model(sh, dim):
+        return "model" in entry_axes(sh.spec[dim])
+    kv = None
+    if "k" in cache_sh:
+        kv = ("seq" if on_model(cache_sh["k"], 2) else
+              "heads" if on_model(cache_sh["k"], 3) else None)
+    conv = "conv_state" in cache_sh and on_model(cache_sh["conv_state"], 3)
+    return {"kv": kv, "conv": conv}
+
+
+def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
+                    run: Callable, cache_shapes: Callable,
+                    group: Optional[ShardGroup] = None):
+    """The ``sharded_fn`` of a serving step on ``mesh`` (more than one
+    process): ``fn(params, batch)`` on every rank with ``DTensor``s laid
+    out by ``in_shardings`` (``cache_index`` may also come as a plain
+    tensor), returning (logits, cache) as ``DTensor``s by
+    ``out_shardings``, the cache's global shapes ``cache_shapes(batch)``.
+    Each rank takes the rows of its data shard (the token batch,
+    gathered whole, is small; the cache holds only those rows), runs
+    ``run(params, inputs, cache)`` on its local shards inside its
+    ``ModelAxis`` (tensor-parallel over the model axis; no weight is
+    gathered) and keeps its share of the outputs. The moe, hybrid and
+    audio families raise NotImplementedError."""
+    cfg = model.cfg
+    if cfg.family not in SHARDED_SERVING_FAMILIES:
+        def refused(*_):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family's serving steps do not "
+                "run sharded over a mesh of processes yet (ROADMAP Queue 1: "
+                "the moe family's expert parallelism, the hybrid and audio "
+                "serving steps)")
+        return refused
+    logits_sh, cache_sh = out_sh
+    layout = cache_layout(cache_sh)
+    data = entry_axes(b_sh["tokens"].spec[0])
+    groups = [group]
+
+    def step(params, batch):
+        if groups[0] is None:         # the process group exists by now
+            groups[0] = ShardGroup(mesh)
+        g = groups[0]
+        B = batch["tokens"].shape[0]
+        mine = g.slices(NamedSharding(mesh, PartitionSpec(data or None)),
+                        (B,))[0]
+        small = {k: batch[k] for k in ("tokens", "positions") if k in batch}
+        rows = {}
+        for k, v in g.gather(small, {k: b_sh[k] for k in small}).items():
+            v = v.narrow(v.ndim - 2, mine.start, mine.stop - mine.start)
+            rows[k] = v if k == "positions" else v.long()
+        if "cache_index" in batch:
+            ci = _local(batch["cache_index"])
+            rows["cache_index"] = ci[mine] if ci.ndim == 1 else ci
+        local = tree_map(_local, params)
+        cache = (tree_map(_local, batch["cache"]) if "cache" in batch
+                 else None)
+        ax = (ModelAxis(g, **layout) if mesh.sizes.get("model", 1) > 1
+              else None)
+        with use_model_axis(ax):
+            logits, new_cache = run(local, rows, cache)
+        shapes = cache_shapes(batch)
+        return (g.wrap(logits, logits_sh, (B, 1, cfg.vocab_size)),
+                {k: g.wrap(v, cache_sh[k], shapes[k])
+                 for k, v in new_cache.items()})
+
+    return step
+
+
 def make_prefill_step(model: TransformerLM, mesh: Mesh,
-                      shape: ShapeConfig) -> StepBundle:
-    """``fn(params, batch) -> (last-token logits (B, 1, V), cache)``."""
+                      shape: ShapeConfig,
+                      group: Optional[ShardGroup] = None) -> StepBundle:
+    """``fn(params, batch) -> (last-token logits (B, 1, V), cache)``; on a
+    mesh of more than one process, ``sharded_fn`` (``sharded_serving``).
+    """
     cfg = model.cfg
 
     def prefill_step(params, batch):
@@ -364,19 +451,29 @@ def make_prefill_step(model: TransformerLM, mesh: Mesh,
                                      shape.seq_len).items()}
     cache_sh = tree_shardings(kv_cache_axes(cfg), mesh, DEFAULT_RULES,
                               cache_specs)
+    out_sh = (_logits_sharding(cfg, mesh, shape), cache_sh)
     return StepBundle(
         fn=prefill_step,
         abstract_inputs=(param_shapes, bspecs),
         in_shardings=(p_sh, b_sh),
-        out_shardings=(_logits_sharding(cfg, mesh, shape), cache_sh),
+        out_shardings=out_sh,
         donate_argnums=(),
+        sharded_fn=(sharded_serving(
+            model, mesh, b_sh, out_sh, lambda p, b, _: model.prefill(
+                p, b["tokens"], positions=b.get("positions")),
+            lambda b: {k: s for k, (s, _) in kv_cache_specs(
+                cfg, *b["tokens"].shape).items()}, group)
+            if mesh.size > 1 else None),
     )
 
 
 def make_decode_step(model: TransformerLM, mesh: Mesh,
-                     shape: ShapeConfig) -> StepBundle:
+                     shape: ShapeConfig,
+                     group: Optional[ShardGroup] = None) -> StepBundle:
     """``fn(params, batch) -> (logits (B, 1, V), new cache)``; the batch
-    holds one token per sequence, the cache and ``cache_index``."""
+    holds one token per sequence, the cache and ``cache_index``. On a
+    mesh of more than one process, ``sharded_fn`` (``sharded_serving``).
+    """
     cfg = model.cfg
 
     def serve_step(params, batch):
@@ -388,13 +485,78 @@ def make_decode_step(model: TransformerLM, mesh: Mesh,
     bspecs = input_specs(cfg, shape)
     p_sh = serving_param_shardings(model.param_axes(), param_shapes, mesh)
     b_sh = tree_shardings(batch_axes(cfg, shape), mesh, DEFAULT_RULES, bspecs)
+    out_sh = (_logits_sharding(cfg, mesh, shape), b_sh["cache"])
     return StepBundle(
         fn=serve_step,
         abstract_inputs=(param_shapes, bspecs),
         in_shardings=(p_sh, b_sh),
-        out_shardings=(_logits_sharding(cfg, mesh, shape), b_sh["cache"]),
+        out_shardings=out_sh,
         donate_argnums=(1,),          # cache buffers are reused
+        sharded_fn=(sharded_serving(
+            model, mesh, b_sh, out_sh, lambda p, b, c: model.decode_step(
+                p, b["tokens"], c, b["cache_index"],
+                positions=b.get("positions")),
+            lambda b: {k: tuple(v.shape) for k, v in b["cache"].items()},
+            group)
+            if mesh.size > 1 else None),
     )
+
+
+def init_serving_shards(model: TransformerLM, bundle: StepBundle,
+                        group: ShardGroup, seed: int = 0):
+    """This rank's shards of ``model.init(seed, dtype=cfg.dtype)`` as
+    ``DTensor``s by a serving step's parameter shardings, drawn on the
+    rank's device: every leaf is drawn in ``init``'s generator order and
+    only the rank's part kept, so the shards equal one process's weights
+    and the rank never holds more than its shards and one draw."""
+    shapes, p_sh = bundle.abstract_inputs[0], bundle.in_shardings[0]
+    parts = tree_map(lambda t, s: group.slices(s, t.shape), shapes, p_sh)
+    local = model.init(seed, device=group.device, dtype=model.cfg.dtype,
+                       parts=parts)
+    return tree_map(lambda t, s, m: group.wrap(t, s, m.shape), local, p_sh,
+                    shapes)
+
+
+def reshard_cache_leaf(local: torch.Tensor, src: NamedSharding,
+                       dst: NamedSharding, ax, capacity: Optional[int] = None
+                       ) -> torch.Tensor:
+    """This rank's part of one cache leaf by ``src`` as its part by
+    ``dst``: gathered over the model axis ``ax`` where ``src`` splits it,
+    k/v positions padded to ``capacity`` where given, and this rank's
+    part kept where ``dst`` splits it (the batch rows stay on their data
+    shard)."""
+    for dim, e in enumerate(src.spec):
+        if "model" in entry_axes(e):
+            local = ax.gather(local, dim)
+    if capacity is not None:
+        local = pad_cache({"k": local}, capacity)["k"]
+    for dim, e in enumerate(dst.spec):
+        if "model" in entry_axes(e):
+            local = ax.mine(local, dim, local.shape[dim] // ax.size)
+    return local.contiguous()
+
+
+def decode_cache(cache, prefill: StepBundle, decode: StepBundle,
+                 group: ShardGroup):
+    """``pad_cache`` between a sharded prefill and decode step: the
+    prefill's cache (``DTensor``s by its out-shardings, k/v of length S)
+    as the decode step's (by its in-shardings, k/v padded to its T). The
+    rank boundaries over positions move, so each leaf is resharded
+    (``reshard_cache_leaf``)."""
+    src, dst = prefill.out_shardings[1], decode.in_shardings[1]["cache"]
+    specs = decode.abstract_inputs[1]["cache"]
+    ax = (ModelAxis(group) if group.mesh.sizes.get("model", 1) > 1
+          else LOCAL)
+    out = {}
+    for k, t in cache.items():
+        if src[k] == dst[k] and tuple(t.shape) == tuple(specs[k].shape):
+            out[k] = t                # the ssm states: no positions
+            continue
+        out[k] = group.wrap(reshard_cache_leaf(
+            _local(t), src[k], dst[k], ax,
+            specs[k].shape[2] if k in ("k", "v") else None),
+            dst[k], specs[k].shape)
+    return out
 
 
 def make_step(cfg: ModelConfig, mesh: Mesh, shape: ShapeConfig,

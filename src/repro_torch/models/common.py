@@ -81,35 +81,53 @@ def _draw(p: P, gen: torch.Generator, shape, device) -> torch.Tensor:
 
 
 def _init_one(p: P, gen: torch.Generator, param_dtype,
-              device: torch.device) -> torch.Tensor:
+              device: torch.device, part=None) -> torch.Tensor:
+    """The leaf of ``p`` drawn from ``gen``; with ``part`` (a tuple of
+    slices, one per dim) only that part of it is kept: the generator
+    makes the same draws as for the whole leaf, and the rest of each draw
+    is freed as it is made."""
     dtype = p.dtype or param_dtype
+    shape = (p.shape if part is None
+             else tuple(sl.stop - sl.start for sl in part))
     if p.init == "zeros":
-        return torch.zeros(p.shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if p.init == "ones":
-        return torch.ones(p.shape, dtype=dtype, device=device)
+        return torch.ones(shape, dtype=dtype, device=device)
     if torch.finfo(dtype).bits >= 32 or not p.shape:
-        return _draw(p, gen, p.shape, device).to(dtype)
+        out = _draw(p, gen, p.shape, device).to(dtype)
+        return out if part is None else out[part].clone()
     # narrower than f32: drawn in slices of the leading (layer) axis into
     # the leaf, allocated once in its dtype, so that the f32 draw never
     # holds more than DRAW_ELEMENTS (a whole stacked leaf in f32 would be
     # twice the bf16 leaf: 34 GB for deepseek-coder-33b's MLP)
-    out = torch.empty(p.shape, dtype=dtype, device=device)
+    out = torch.empty(shape, dtype=dtype, device=device)
     rows = max(1, DRAW_ELEMENTS // max(1, math.prod(p.shape[1:])))
+    first = part[0] if part is not None else slice(0, p.shape[0])
     for i in range(0, p.shape[0], rows):
-        part = out[i:i + rows]
-        part.copy_(_draw(p, gen, part.shape, device))
+        n = min(rows, p.shape[0] - i)
+        drawn = _draw(p, gen, (n,) + tuple(p.shape[1:]), device)
+        lo, hi = max(i, first.start), min(i + n, first.stop)
+        if lo < hi:
+            rest = () if part is None else tuple(part[1:])
+            out[lo - first.start:hi - first.start].copy_(
+                drawn[(slice(lo - i, hi - i),) + rest])
+        del drawn
     return out
 
 
 def init_from_specs(specs, gen: torch.Generator,
-                    param_dtype=torch.float32):
+                    param_dtype=torch.float32, parts=None):
     """Materialise a spec tree on ``gen``'s device, drawing the leaves in
     sorted key order (as ``jax.tree.flatten`` orders a dict). A leaf in f32
     (or wider) is drawn whole; a narrower one slice by slice
-    (``_init_one``), so its values differ from the f32 draw's."""
+    (``_init_one``), so its values differ from the f32 draw's. ``parts``,
+    a tree of slice tuples beside ``specs``, keeps only those parts of
+    the leaves (a rank's shards), equal to the same parts of the whole
+    draw."""
     if isinstance(specs, P):
-        return _init_one(specs, gen, param_dtype, gen.device)
-    return {k: init_from_specs(specs[k], gen, param_dtype)
+        return _init_one(specs, gen, param_dtype, gen.device, parts)
+    return {k: init_from_specs(specs[k], gen, param_dtype,
+                               None if parts is None else parts[k])
             for k in sorted(specs)}
 
 

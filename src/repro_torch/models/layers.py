@@ -14,6 +14,21 @@ sums are the same up to their order. The chunked path upcasts one key
 chunk at a time, never a whole k or v. The reference's sharding
 constraints are dropped: one card has no mesh, and the reference's own
 ``constrain`` does nothing without one.
+
+Inside a sharded serving step (``sharding.model_axis()`` is set) each rank
+holds its shards of the weights, by the serving shardings, and computes
+its share (tensor parallelism over the model axis): ``wq``, ``wk``, ``wv``
+and the MLP's ``wg``, ``wi`` column-parallel on its heads and hidden
+columns, ``wo`` row-parallel (``row_parallel``: the partial products
+summed over the axis in f32, rounded once); a weight split on its embed
+dim (the serving fallback where heads do not divide the axis) multiplies
+the rank's slice of ``x`` and sums. Decode against a cache split over
+positions is split-KV attention (``decode_gqa_attention`` on the axis):
+q gathered, each rank attending over its positions, the parts combined by
+their max and sums. One device runs the same bodies on ``LOCAL``, whose
+collectives are the identity; where a split would change one device's
+arithmetic (the row-parallel products, decode's softmax) the size-1 axis
+keeps it.
 """
 from __future__ import annotations
 
@@ -22,6 +37,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import LOCAL, LocalAxis, model_axis
 
 Index = Union[int, torch.Tensor]
 
@@ -180,13 +197,18 @@ def chunked_gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor,
-                         cache_index: Index) -> torch.Tensor:
+                         v_cache: torch.Tensor, cache_index: Index,
+                         ax: LocalAxis = LOCAL) -> torch.Tensor:
     """Single-token decode attention against a (B, T, KVH, D) cache.
 
     q: (B, 1, H, D). Positions > cache_index are masked out.
     ``cache_index`` may be a scalar (lockstep decode) or (B,) per-slot
-    lengths (continuous batching in the serving engine).
+    lengths (continuous batching in the serving engine). On a model axis
+    whose ranks hold the cache split over positions (this rank T of them,
+    from ``ax.index * T``) and q of every head, split-KV attention: the
+    scores' max over the axis, the softmax's sum over the axis, and P
+    (rounded to v's type, as one device rounds it) times the rank's
+    values summed over the axis.
     """
     B, _, H, D = q.shape
     T, KVH = k_cache.shape[1], k_cache.shape[2]
@@ -194,17 +216,97 @@ def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     dev = q.device
     qr = _scaled(q).reshape(B, KVH, G, D)
     s = torch.einsum("bkgd,btkd->bkgt", qr.float(), k_cache.float())
+    pos = torch.arange(ax.index * T, (ax.index + 1) * T, device=dev)
     ci = torch.as_tensor(cache_index, device=dev)
-    if ci.ndim == 1:
-        valid = torch.arange(T, device=dev)[None] <= ci[:, None]   # (B, T)
-        s = torch.where(valid[:, None, None], s, -math.inf)
+    valid = pos[None] <= (ci[:, None] if ci.ndim == 1 else ci)  # (B | 1, T)
+    s = torch.where(valid[:, None, None], s, -math.inf)
+    if ax.size == 1:
+        p = torch.softmax(s, dim=-1)
     else:
-        valid = torch.arange(T, device=dev)[None] <= ci            # (1, T)
-        s = torch.where(valid[None, None], s, -math.inf)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
-                       v_cache.float())
+        m = ax.max(s.amax(dim=-1, keepdim=True))  # position 0 is valid
+        e = torch.exp(s - m)
+        p = e / ax.sum(e.sum(dim=-1, keepdim=True))
+    out = ax.sum(torch.einsum("bkgt,btkd->bkgd", p.to(v_cache.dtype).float(),
+                              v_cache.float()))
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel products
+# ---------------------------------------------------------------------------
+
+
+def wide_product(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (..., K) @ w (K, N) in f32 from operands in a's dtype: on the card
+    one GEMM with an f32 output (no f32 copy of w), elsewhere in f32 (a
+    product of two bf16 values is exact in f32 either way)."""
+    w = w.to(a.dtype)
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).unflatten(0, a.shape[:-1])
+    return a.float() @ w.float()
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor, ax: LocalAxis,
+                 kernel: bool = False) -> torch.Tensor:
+    """a (..., K) @ w (K, N), or a (B, S, H, D) times w (H, D, E) over H
+    and D, with the contraction split over the model axis (this rank's
+    rows of w): on one device the product in a's dtype; on an axis each
+    rank's partial product in f32, summed over the axis and rounded once
+    to a's dtype. ``kernel``: the matmul kernel (its sums are f32)."""
+    from repro_torch.kernels import ops as kops
+    w = w.to(a.dtype)
+    if ax.size == 1:
+        if kernel:
+            return kops.matmul(a, w)
+        return a @ w if w.ndim == 2 else torch.einsum("bshd,hde->bse", a, w)
+    if w.ndim == 3:
+        a, w = a.flatten(2), w.flatten(0, 1)
+    part = (kops.matmul(a, w, out_dtype=torch.float32) if kernel
+            else wide_product(a, w))
+    return ax.sum(part).to(a.dtype)
+
+
+def column_product(x: torch.Tensor, w: torch.Tensor,
+                   ax: LocalAxis) -> torch.Tensor:
+    """x (..., E) times w (E, ...) whole or split on its trailing dims
+    (this rank's heads or columns); w split on its embed dim instead (the
+    serving fallback, where no trailing dim divides the axis): this
+    rank's slice of x times its rows, summed over the axis (every
+    column)."""
+    if w.shape[0] == x.shape[-1]:
+        w = w.to(x.dtype)
+        return (x @ w if w.ndim == 2 else
+                torch.einsum("bse,ehd->bshd", x, w))
+    return row_parallel(ax.mine(x, -1, w.shape[0]), w.flatten(1),
+                        ax).unflatten(-1, w.shape[1:])
+
+
+def _local_heads(cfg, wo: torch.Tensor, ax: LocalAxis):
+    """This rank's query heads (``wo``'s, split over the axis) and the kv
+    heads they read: (q heads, kv range start, kv range end)."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    hq = wo.shape[0]
+    if hq * ax.size != H:
+        raise NotImplementedError(
+            f"{cfg.name}: {H} heads do not split over a model axis of "
+            f"{ax.size}; tensor-parallel attention needs them to")
+    G = H // KVH
+    lo = ax.index * hq // G
+    return hq, lo, ((ax.index + 1) * hq - 1) // G + 1
+
+
+def _kv_heads(t: torch.Tensor, lo: int, hi: int, KVH: int) -> torch.Tensor:
+    """kv heads ``lo .. hi`` of ``t``: ``t`` holds every kv head or, split
+    over the axis, exactly these."""
+    if t.shape[2] == KVH:
+        return t[:, :, lo:hi]
+    assert t.shape[2] == hi - lo, (t.shape, lo, hi)
+    return t
+
+
+def _all_kv_heads(t: torch.Tensor, ax: LocalAxis, KVH: int) -> torch.Tensor:
+    return t if t.shape[2] == KVH else ax.gather(t, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -224,20 +326,26 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
       {"kv": (k, v)}                  in full-sequence self-attention, or
       {}                              in cross-attention.
     If `encoder_kv` is given, runs cross-attention (no rope, no causal).
+    Inside a sharded serving step, on this rank's heads, the cache and
+    ``kv`` in the step's layout over the model axis (``ax.kv``).
     """
     S = x.shape[1]
     dt = x.dtype
+    ax = model_axis() or LOCAL
+    cross = encoder_kv is not None
+    if cross and ax.size > 1:
+        raise NotImplementedError("cross-attention does not run "
+                                  "tensor-parallel (ROADMAP Queue 1)")
 
-    q = torch.einsum("bse,ehd->bshd", x, params["wq"].to(dt))
+    q = column_product(x, params["wq"], ax)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
 
-    cross = encoder_kv is not None
     if cross:
         k, v = encoder_kv
     else:
-        k = torch.einsum("bse,ehd->bshd", x, params["wk"].to(dt))
-        v = torch.einsum("bse,ehd->bshd", x, params["wv"].to(dt))
+        k = column_product(x, params["wk"], ax)
+        v = column_product(x, params["wv"], ax)
         if cfg.qkv_bias:
             k = k + params["bk"].to(dt)
             v = v + params["bv"].to(dt)
@@ -259,36 +367,62 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
 
+    # this rank's query heads and the kv heads they read (all on one device)
+    KVH = cfg.num_kv_heads
+    hq, lo, hi = _local_heads(cfg, params["wo"], ax)
+    if q.shape[2] != hq:
+        q = ax.mine(q, 2, hq)
     extras: dict = {}
     if cache is not None and not cross:
         # decode: write this token's k/v at cache_index, attend to cache
         k_cache, v_cache = cache                             # (B, T, KVH, D)
-        k_cache = _write_cache(k_cache, k, cache_index)
-        v_cache = _write_cache(v_cache, v, cache_index)
-        out = decode_gqa_attention(q, k_cache, v_cache, cache_index)
+        if ax.kv == "seq":
+            k_cache = _write_cache(k_cache, _all_kv_heads(k, ax, KVH),
+                                   cache_index, ax)
+            v_cache = _write_cache(v_cache, _all_kv_heads(v, ax, KVH),
+                                   cache_index, ax)
+            out = ax.mine(decode_gqa_attention(
+                ax.gather(q, 2), k_cache, v_cache, cache_index, ax), 2, hq)
+        else:
+            heads = ax.kv == "heads"
+            k, v = ((_kv_heads(k, lo, hi, KVH), _kv_heads(v, lo, hi, KVH))
+                    if heads else
+                    (_all_kv_heads(k, ax, KVH), _all_kv_heads(v, ax, KVH)))
+            k_cache = _write_cache(k_cache, k, cache_index)
+            v_cache = _write_cache(v_cache, v, cache_index)
+            out = decode_gqa_attention(
+                q, k_cache if heads else k_cache[:, :, lo:hi],
+                v_cache if heads else v_cache[:, :, lo:hi], cache_index)
         extras["cache"] = (k_cache, v_cache)
     elif cross:
         out = (full_gqa_attention(q, k, v, causal=False)
                if cfg.exact_costs else
                chunked_gqa_attention(q, k, v, causal=False))
-    elif cfg.exact_costs:
-        # the reference's cost probe: scan-free, flop-equivalent attention
-        out = full_gqa_attention(q, k, v, causal=causal)
-        extras["kv"] = (k, v)
-    elif cfg.use_pallas:
-        from repro_torch.kernels import ops as kops
-        out = kops.flash_attention(q, k, v, causal=causal)
-        extras["kv"] = (k, v)
     else:
-        out = chunked_gqa_attention(q, k, v, causal=causal)
+        km, vm = _kv_heads(k, lo, hi, KVH), _kv_heads(v, lo, hi, KVH)
+        if cfg.exact_costs:
+            # the reference's cost probe: scan-free, flop-equivalent
+            out = full_gqa_attention(q, km, vm, causal=causal)
+        elif cfg.use_pallas:
+            from repro_torch.kernels import ops as kops
+            out = kops.flash_attention(q, km, vm, causal=causal)
+        else:
+            out = chunked_gqa_attention(q, km, vm, causal=causal)
+        if ax.kv == "heads":
+            k, v = km, vm
+        else:
+            k, v = _all_kv_heads(k, ax, KVH), _all_kv_heads(v, ax, KVH)
+            if ax.kv == "seq":
+                n = k.shape[1] // ax.size
+                k, v = ax.mine(k, 1, n), ax.mine(v, 1, n)
         extras["kv"] = (k, v)
 
-    y = torch.einsum("bshd,hde->bse", out, params["wo"].to(dt))
+    y = row_parallel(out, params["wo"], ax)
     return y, extras
 
 
-def _write_cache(cache: torch.Tensor, kv: torch.Tensor,
-                 index: Index) -> torch.Tensor:
+def _write_cache(cache: torch.Tensor, kv: torch.Tensor, index: Index,
+                 ax: LocalAxis = LOCAL) -> torch.Tensor:
     """Write (B, 1, KVH, D) kv into (B, T, KVH, D) cache at position index
     (a new tensor; the cache given is left as it was).
 
@@ -296,19 +430,27 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor,
     fits (as ``lax.dynamic_update_slice`` clamps). (B,) per-slot indices
     (continuous batching): one-hot masked write. A meta index (the dry
     run's abstract inputs) has no value: the slice is written at 0, the
-    same ops on the same shapes as at any start.
+    same ops on the same shapes as at any start. On a model axis whose
+    ranks hold the cache split over positions (this rank T of them, from
+    ``ax.index * T``), only the rank whose positions hold the index
+    writes; the others return their cache as it is.
     """
+    T = cache.shape[1]
+    at = ax.index * T
     idx = torch.as_tensor(index, device=cache.device)
     if idx.ndim == 1:
-        T = cache.shape[1]
-        onehot = (torch.arange(T, device=cache.device)[None, :]
+        onehot = (torch.arange(at, at + T, device=cache.device)[None, :]
                   == idx[:, None])                             # (B, T)
         return torch.where(onehot[:, :, None, None], kv.to(cache.dtype),
                            cache)
     n = kv.shape[1]
-    start = 0 if idx.is_meta else min(max(int(idx), 0), cache.shape[1] - n)
+    start = (0 if idx.is_meta else
+             min(max(int(idx), 0), T * ax.size - n)) - at
+    lo, hi = max(start, 0), min(start + n, T)
+    if lo >= hi:
+        return cache
     out = cache.clone()
-    out[:, start:start + n] = kv.to(cache.dtype)
+    out[:, lo:hi] = kv[:, lo - start:hi - start].to(cache.dtype)
     return out
 
 
@@ -318,13 +460,20 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor,
 
 
 def swiglu_mlp(params, x: torch.Tensor, cfg=None) -> torch.Tensor:
-    """params: {wi (E,F), wg (E,F), wo (F,E)}."""
+    """params: {wi (E,F), wg (E,F), wo (F,E)}. Inside a sharded serving
+    step ``wg`` and ``wi`` are column-parallel (this rank's hidden
+    columns) and ``wo`` row-parallel."""
     dt = x.dtype
-    if cfg is not None and cfg.use_pallas:
+    ax = model_axis() or LOCAL
+    wg, wi, wo = params["wg"], params["wi"], params["wo"]
+    if wg.shape[0] != x.shape[-1] or wo.shape[0] != wg.shape[-1]:
+        raise NotImplementedError(
+            f"the MLP's hidden dim does not split over a model axis of "
+            f"{ax.size} (wg {tuple(wg.shape)}, wo {tuple(wo.shape)})")
+    kernel = cfg is not None and cfg.use_pallas
+    if kernel:
         from repro_torch.kernels import ops as kops
-        h = kops.matmul(x, params["wg"].to(dt))
-        g = kops.matmul(x, params["wi"].to(dt))
-        h = F.silu(h) * g
-        return kops.matmul(h, params["wo"].to(dt))
-    h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
-    return h @ params["wo"].to(dt)
+        h = F.silu(kops.matmul(x, wg.to(dt))) * kops.matmul(x, wi.to(dt))
+    else:
+        h = F.silu(x @ wg.to(dt)) * (x @ wi.to(dt))
+    return row_parallel(h, wo, ax, kernel)

@@ -15,6 +15,16 @@ The chunked algorithm splits the sequence into chunks of length L:
   intra-chunk  : (C_t . B_s) exp(cum_t - cum_s) dt_s  for s <= t  (L x L)
   chunk state  : sum_s exp(cum_L - cum_s) dt_s x_s (x) B_s
   inter-chunk  : scan over chunk states; y_inter = exp(cum_t) C_t @ H_c
+
+Inside a sharded serving step (``sharding.model_axis()``) the block runs
+on this rank's SSD heads: ``wz``, ``wx``, ``wdt``, ``conv_x`` and the
+per-head vectors hold its heads' channels, B and C are whole on every
+rank (``wB``, ``wC`` split on their embed dim by the serving fallback:
+partial products summed), the gated RMSNorm's sum of squares is summed
+over the axis and ``out_proj`` runs row-parallel. ``conv_state`` is
+stored with its channels (x, B, C) split evenly over the axis, which is
+not the compute's split (the rank's x channels with all of B and C), so
+it is gathered and re-laid on the way in and out.
 """
 from __future__ import annotations
 
@@ -23,8 +33,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import LOCAL, LocalAxis, model_axis
 from repro_torch.kernels.mamba2_scan import chunk_len
 from repro_torch.models.common import P
+from repro_torch.models.layers import column_product, row_parallel
 
 
 def mamba2_specs(cfg) -> Dict[str, P]:
@@ -137,6 +149,22 @@ def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
+def _conv_in(state: torch.Tensor, d_in: int, ax: LocalAxis) -> torch.Tensor:
+    """The stored conv state (B, K-1, CD, or CD / size when split) in the
+    compute's layout: this rank's x channels, then all of B and C."""
+    full = ax.gather(state, -1) if ax.conv else state
+    n = d_in // ax.size
+    return torch.cat([ax.mine(full, -1, n), full[..., d_in:]], dim=-1)
+
+
+def _conv_out(hist: torch.Tensor, n: int, ax: LocalAxis) -> torch.Tensor:
+    """The compute's conv state (the rank's ``n`` x channels, then B and
+    C) in the stored layout: every rank's x channels gathered, then this
+    rank's even share of all channels where they are split."""
+    full = torch.cat([ax.gather(hist[..., :n], -1), hist[..., n:]], dim=-1)
+    return ax.mine(full, -1, full.shape[-1] // ax.size) if ax.conv else full
+
+
 def mamba2_block(params, x: torch.Tensor, cfg, *,
                  state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  want_state: bool = False):
@@ -148,17 +176,20 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
     s = cfg.ssm
     B, S, E = x.shape
     d_in = s.expand * cfg.d_model
-    nh = s.num_heads(cfg.d_model)
     hd = s.head_dim
-    ds = s.d_state
     k = s.conv_kernel
     dt_ = x.dtype
+    ax = model_axis() or LOCAL
 
-    z = x @ params["wz"].to(dt_)                           # (B,S,d_in)
-    xin = x @ params["wx"].to(dt_)
-    Bp = x @ params["wB"].to(dt_)                          # (B,S,DS)
-    Cp = x @ params["wC"].to(dt_)
-    dt = x @ params["wdt"].to(dt_)                         # (B,S,NH)
+    z = column_product(x, params["wz"], ax)                # (B,S,d_in)
+    xin = column_product(x, params["wx"], ax)
+    Bp = column_product(x, params["wB"], ax)               # (B,S,DS)
+    Cp = column_product(x, params["wC"], ax)
+    dt = column_product(x, params["wdt"], ax)              # (B,S,NH)
+    n_x, nh = xin.shape[-1], dt.shape[-1]      # this rank's on the axis
+    if nh * hd != n_x:
+        raise NotImplementedError(
+            f"{cfg.name}: the SSD heads do not split over the model axis")
 
     xBC = torch.cat([xin, Bp, Cp], dim=-1)                 # (B,S,CD)
     conv_w = torch.cat(
@@ -166,6 +197,8 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
         dim=-1).to(dt_)                                    # (K, CD)
 
     conv_state = state[0] if state is not None else None
+    if conv_state is not None and ax.size > 1:
+        conv_state = _conv_in(conv_state, d_in, ax)
     xBC_conv = F.silu(_causal_conv(xBC, conv_w, conv_state))
     new_conv_state = None
     if want_state or state is not None:
@@ -173,10 +206,12 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
             [conv_state if conv_state is not None
              else xBC.new_zeros((B, k - 1, xBC.shape[-1])), xBC], dim=1)
         new_conv_state = hist[:, -(k - 1):, :]
+        if ax.size > 1:
+            new_conv_state = _conv_out(new_conv_state, n_x, ax)
 
-    xs = xBC_conv[..., :d_in]
-    Bs = xBC_conv[..., d_in:d_in + ds]
-    Cs = xBC_conv[..., d_in + ds:]
+    xs = xBC_conv[..., :n_x]
+    Bs = xBC_conv[..., n_x:n_x + s.d_state]
+    Cs = xBC_conv[..., n_x + s.d_state:]
 
     A = -torch.exp(params["A_log"].float())                # (NH,)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
@@ -196,14 +231,16 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
         y, h = ssd_chunked(xh, dt, A, Bs, Cs, Dp, chunk=s.chunk_size,
                            h0=ssm_state)
 
-    y = y.reshape(B, S, d_in).to(dt_)
-    # gated RMSNorm (mamba2: norm(y * silu(z)))
+    y = y.reshape(B, S, n_x).to(dt_)
+    # gated RMSNorm (mamba2: norm(y * silu(z))), its mean over all d_in
     y = y * F.silu(z)
     yf = y.float()
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+    if ax.size > 1:    # the ranks' equal shares of d_in: the mean of means
+        var = ax.sum(var) / ax.size
     y = (yf * torch.rsqrt(var + cfg.rms_eps)
          * params["norm"].float()).to(dt_)
-    out = y @ params["out_proj"].to(dt_)
+    out = row_parallel(y, params["out_proj"], ax)
 
     new_state = None
     if want_state or state is not None:

@@ -34,12 +34,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import LOCAL, model_axis
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (P, axes_from_specs, init_from_specs,
                                        shapes_from_specs, stacked,
                                        tree_map_specs)
-from repro_torch.models.layers import attention_block, rms_norm, swiglu_mlp
+from repro_torch.models.layers import (attention_block, column_product,
+                                       rms_norm, swiglu_mlp)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
@@ -169,17 +171,19 @@ class TransformerLM:
 
     def init(self, seed: int = 0,
              device: Union[str, torch.device, None] = None,
-             dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+             dtype: Optional[torch.dtype] = None,
+             parts=None) -> Dict[str, Any]:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``,
         on the card unless ``device`` says otherwise; every leaf in
         ``dtype`` where given (the serving steps' model-dtype weights), else
-        in ``cfg.param_dtype``."""
+        in ``cfg.param_dtype``. ``parts`` (a tree of slice tuples) keeps
+        only those parts of the leaves (``init_from_specs``)."""
         gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
         specs = self.specs()
         if dtype is not None:
             specs = tree_map_specs(
                 lambda p: dataclasses.replace(p, dtype=dtype), specs)
-        return init_from_specs(specs, gen, self.cfg.param_dtype)
+        return init_from_specs(specs, gen, self.cfg.param_dtype, parts)
 
     def param_shapes(self):
         return shapes_from_specs(self.specs(), self.cfg.param_dtype)
@@ -348,14 +352,31 @@ class TransformerLM:
     # -- public entry points ---------------------------------------------------
 
     def embed_tokens(self, params, tokens):
-        return params["embed"][tokens].to(self.cfg.dtype)
+        """The tokens' rows of the embedding. Inside a sharded step, a
+        table split over the vocab looks up the tokens of this rank's
+        range (zeros for the rest), summed over the model axis; one split
+        on its embed dim gathers the rank's columns."""
+        emb, ax = params["embed"], model_axis()
+        if ax is None or tuple(emb.shape) == (self.cfg.vocab_size,
+                                              self.cfg.d_model):
+            return emb[tokens].to(self.cfg.dtype)
+        if emb.shape[0] == self.cfg.vocab_size:
+            return ax.gather(emb[tokens], -1).to(self.cfg.dtype)
+        n = emb.shape[0]
+        ids = tokens - ax.index * n
+        hit = (ids >= 0) & (ids < n)
+        rows = torch.where(hit[..., None], emb[ids.clamp(0, n - 1)], 0)
+        return ax.sum(rows).to(self.cfg.dtype)
 
     def logits(self, params, x):
+        """The final norm on the whole ``x``, then the head's columns;
+        inside a sharded step those of this rank's vocab range, unless
+        the head is split on its embed dim (summed, every column)."""
         cfg = self.cfg
         x = rms_norm(x, params["final_norm"], cfg.rms_eps)
         head = (params["embed"].T if cfg.tie_embeddings
                 else params["lm_head"])
-        return x @ head.to(x.dtype)
+        return column_product(x, head, model_axis() or LOCAL)
 
     def forward_train(self, params, tokens, *, positions=None,
                       encoder_embeds=None):
