@@ -111,23 +111,35 @@ Phases, each raising on failure:
      train step runs torch ops (``use_pallas`` training is refused);
  13. the serving steps sharded over a mesh of processes, tensor-parallel
      on the model axis (``make_prefill_step`` / ``make_decode_step``'s
-     ``sharded_fn``): qwen2.5-14b whole in bf16 on (1, 2) and mamba2-130m
-     whole on (1, 2) and (2, 1), two ranks of one gloo group on
-     ``cuda:0`` (``chip_smoke.py --sharded-serving JOB``, which starts
-     the ranks, each ``--sharded-serving-rank JOB``), each drawing only
-     its shards, on phase 9's traffic; against one process running the
-     same steps on the same weights here first: each layer from one
-     input (prefill and decode outputs, the cache at the rank's
-     positions, the decode token's row) within PLAIN_TOL, the rest of the
-     cache passed through; the first PLAIN_LAYERS layers through the
-     kernels within PLAIN_TOL of their plain versions on the same shards
-     (the MLP's matmuls with the f32 partial, flash and the SSD at shard
-     shapes); argument bytes equal to the dry run's, peak memory below the
-     shards plus one whole leaf plus the step's temporaries, every kernel
-     launched at a shard's shape (the MLP's matmuls at N or K = d_ff / 2,
-     flash and the SSD on half the heads).
+     ``sharded_fn``), the ranks of one gloo group all on ``cuda:0``
+     (each ``chip_smoke.py --sharded-serving-rank JOB``), each drawing
+     only its shards:
+     qwen2.5-14b in bf16 cut to its first 8 layers (the whole model's
+     draw) on (1, 2) and whole on (1, 3) (its attention weights whole on
+     every rank, 3, 3 and 2 kv groups of 5 heads), mamba2-130m cut to
+     its first 8 layers likewise on (1, 2) and (2, 1) and whole on the
+     production model axis (1, 16) (2 SSD heads on ranks 0-11, none on
+     12-15), on phase 9's traffic (4 decode steps on (1, 16));
+     whisper-base whole on (1, 3) (encoder, decoder and cross-attention
+     on 3, 3 and 2 heads, its MLP, embedding and head whole) on phase 8
+     (b)'s. Against one process
+     running the same steps on the same weights here first: each layer
+     from one input (the encoder's, prefill and decode outputs, the cache
+     at the rank's positions, the cross K/V, the decode token's row)
+     within PLAIN_TOL, the rest of the cache passed through; the first
+     PLAIN_LAYERS layers through the kernels within PLAIN_TOL of their
+     plain versions on the same shards (the MLP's matmuls with the f32
+     partial, flash and the SSD at shard shapes); argument bytes equal to
+     the dry run's, peak memory below the step's arguments (shards,
+     batch, cache) plus one whole leaf plus the step's temporaries, every
+     kernel launched at the rank's shard
+     shapes (a rank with no heads launching no flash or SSD kernel), every
+     kernel family of the path on some rank.
 ``python3 chip_smoke.py --gloo-probe`` lists which collectives gloo
-carries on CUDA tensors in the card's torch (a pair of ranks each).
+carries on CUDA tensors in the card's torch (a pair of ranks each);
+``--reduce-probe`` times the model axis's all-gather and sum against its
+all_reduce on 2, 3 and 16 ranks; ``--phase13-draws`` runs phase 13's
+gates on other draws of its 8-layer qwen2.5-14b run, and in f32.
 Phases 4, 5, 6, 7 (d), 8 (a), 8 (b), 9, 10 and 13 each zero the launch counts
 before their path and read them after; every entry point of the path must
 have run, and no bf16 launch may have taken a CUDA-core (f32) route. The
@@ -142,11 +154,13 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -233,15 +247,46 @@ OBS_TIMEOUT_FLOOR = 6.0
 # train()'s 3e-3 the whole model's loss jumps (11.27, 13.06, 9.33 in its
 # first steps on an H100), which magnifies any change in the sums' order
 SHARDED_STEPS, SHARDED_LOSS_TOL, SHARDED_LR = 5, 1e-2, 3e-4
-# phase 13: the serving steps sharded over two ranks of one gloo group on
-# the one card, tensor-parallel on the model axis, on phase 9's traffic
-# (STEPS_BATCH prompts of STEPS_PROMPT tokens, STEPS_NEW decode steps
-# against a cache of STEPS_CAPACITY, so that on (1, 2) the decode writes
-# land in rank 1's half, just past the boundary): each arch whole, on
-# its meshes; each layer from one input within PLAIN_TOL of one process,
-# and the first PLAIN_LAYERS within PLAIN_TOL of the plain versions
-SHARDED_SERVING = (("qwen2.5-14b", ((1, 2),)),
-                   ("mamba2-130m", ((1, 2), (2, 1))))
+# phase 13: the serving steps sharded over a mesh of ranks of one gloo
+# group on the one card, tensor-parallel on the model axis, each run an
+# arch on its meshes and traffic (batch, prompt, capacity, decode steps),
+# cut to its first ``layers`` layers where given, drawn as the whole model
+# draws them (``widths`` replace a config's for the reduced rehearsals):
+# phase 9's (STEPS_BATCH prompts of STEPS_PROMPT tokens, decode against a
+# cache of STEPS_CAPACITY, so that on (1, 2) the decode writes land in
+# rank 1's half, just past the boundary) and phase 8 (b)'s for
+# whisper-base (its self cache of 48 split over positions on (1, 3));
+# each layer from one input within PLAIN_TOL of one process, and the
+# first PLAIN_LAYERS within PLAIN_TOL of the plain versions. (1, 3)
+# divides none of qwen2.5-14b's 40 heads, 8 kv heads and 5120, nor
+# whisper-base's 8 heads, 2048 and 512; (1, 16), the production model
+# axis, not mamba2-130m's 24 SSD heads. A run's weights are drawn from
+# ``seed``.
+SEED = 0
+
+
+class ShardedRun(NamedTuple):
+    arch: str
+    meshes: tuple
+    traffic: tuple
+    widths: tuple = ()
+    layers: int = 0
+    seed: int = SEED
+
+
+STEPS_TRAFFIC = (STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, STEPS_NEW)
+# waves of runs: a wave's meshes run their ranks at once (the first's 12
+# ranks hold ~64 GiB of the card), each mesh's start-up (processes, CUDA,
+# the shards' draw) beside the others'; the 16 ranks of (1, 16) alone
+# (gloo's latency grows with the ranks on the host's cores)
+SHARDED_SERVING = (
+    (ShardedRun("qwen2.5-14b", ((1, 2),), STEPS_TRAFFIC, layers=8),
+     ShardedRun("mamba2-130m", ((1, 2), (2, 1)), STEPS_TRAFFIC, layers=8),
+     ShardedRun("qwen2.5-14b", ((1, 3),), STEPS_TRAFFIC),
+     ShardedRun("whisper-base", ((1, 3),),
+                (WHISPER_BATCH, WHISPER_PROMPT, 48, WHISPER_STEPS))),
+    (ShardedRun("mamba2-130m", ((1, 16),),
+                (STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, 4)),))
 # phase 11: the dry run's cells, one shape per family on both production
 # meshes (the whole sweep, some 3 min on a CPU, is the CLI's: ``python -m
 # repro_torch.launch.dryrun --all --mesh both``), and a deepseek-coder-33b
@@ -256,7 +301,6 @@ DRYRUN_CELLS = (("qwen2.5-14b", "decode_32k"),
 REPS = 5                      # timed runs per kernel form (median kept)
 # a sleep kernel of ~20 ms at the H100's clocks ahead of each timed window
 HIDE_HOST_CYCLES = 40_000_000
-SEED = 0
 
 
 def card_line() -> str:
@@ -442,6 +486,12 @@ def small_cases(dev):
 TC_EDGES = {
     "mm_tc 256x200x384 b128": dict(M=256, K=200, N=384, blk=128),
     "mm_tc 512x320x512 b256": dict(M=512, K=320, N=512, blk=256),
+    # column tiles of the MLP split over 16 ranks (qwen2.5-14b's 13824 /
+    # 16, qwen2-vl-7b's 18944 / 16) and whisper-base's 688 of its 2048 on
+    # (1, 3): the largest divisor of N up to 128 would be 108, 74 and 86
+    "mm_tc 512x5120x864 b128": dict(M=512, K=5120, N=864, blk=128),
+    "mm_tc 512x3584x1184 b128": dict(M=512, K=3584, N=1184, blk=128),
+    "mm_tc 256x512x688 b128": dict(M=256, K=512, N=688, blk=128),
     "flash_tc chunked S=128 T=384 q_offset=256":
         dict(S=128, T=384, D=128, causal=True, q_offset=256, bq=256),
     "flash_tc non-causal S=256 T=320":
@@ -3095,48 +3145,84 @@ def recorded_launch_shapes():
             setattr(ops, n, orig[k])
 
 
-def launch_shapes_gate(cfg, shapes, rows: int, model_size: int) -> bool:
-    """Every launch at a shard's shape: the MLP's matmuls with N or K =
-    d_ff / model_size, flash attention and the SSD scan with 1 /
-    model_size of the heads over the rank's ``rows``."""
-    ok = bool(shapes["matmul"] or shapes["flash"] or shapes["ssd"])
+def launch_shapes_gate(cfg, shapes, rows: int, model_size: int,
+                       index: int = 0) -> bool:
+    """Every launch at rank ``index``'s shard shapes on a model axis of
+    ``model_size``, over the rank's ``rows``: flash attention on its query
+    heads (the even split where the axis divides the heads, else its
+    block of GSPMD's padded kv groups, G each; none on a rank left
+    without), the SSD scan on its SSD heads likewise, the MLP's matmuls
+    at N or K = its hidden columns (its even split of d_ff or, where the
+    weights are whole, its ``mlp_columns``) or, where they are split on
+    their embed dim, at d_ff and d_model / model_size. A rank with heads
+    or columns must launch their kernels."""
+    from repro_torch.models.layers import mlp_columns
+    def part(n):
+        per = -(-n // model_size)
+        return max(0, min(per, n - index * per))
     if cfg.family == "ssm":
-        nh = cfg.ssm.num_heads(cfg.d_model) // model_size
-        return ok and bool(shapes["ssd"]) and all(
-            b == rows and h == nh for b, _, h, _, _ in shapes["ssd"])
-    f, hq = cfg.d_ff // model_size, cfg.num_heads // model_size
-    return (ok and bool(shapes["matmul"]) and bool(shapes["flash"])
-            and all(n == f or k == f for _, k, n in
-                    (s[:3] for s in shapes["matmul"]))
-            and all(bh == rows * hq and g == cfg.q_per_kv
+        nh = part(cfg.ssm.num_heads(cfg.d_model))
+        return (bool(shapes["ssd"]) == bool(nh) and not shapes["matmul"]
+                and all(b == rows and h == nh
+                        for b, _, h, _, _ in shapes["ssd"]))
+    H, KVH, E, F = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, cfg.d_ff
+    G = H // KVH
+    hq = part(H) if H % model_size == 0 else part(KVH) * G
+    if F % model_size and E % model_size == 0:      # the embed fallback
+        f = F
+        mlp = all({k, n} == {E // model_size, F}
+                  for _, k, n in shapes["matmul"])
+    else:               # split, or whole and sliced (``mlp_columns``)
+        lo, hi = mlp_columns(F, model_size, index)
+        f = F // model_size if F % model_size == 0 else hi - lo
+        mlp = all(n == f or k == f for _, k, n in shapes["matmul"])
+    return (bool(shapes["matmul"]) == bool(f) and mlp
+            and bool(shapes["flash"]) == bool(hq)
+            and all(bh == rows * hq and g == G
                     for bh, _, _, _, g in shapes["flash"]))
 
 
-def device_busy_ms(fn, dev, top=4):
-    """The device events' summed time in one traced call of ``fn`` (the
-    kernels and gloo's copies between card and host, ``kernel_rows``) and
-    the ``top`` events by time as [name, ms, count]; (None, []) off the
-    card or where the trace saw none."""
-    if dev.type != "cuda":
-        return None, []
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize(dev)
+def traced(fn, dev, top=4):
+    """``fn()`` once, its host seconds ending in a synchronize, traced on
+    the card (the trace started before the clock and stopped after it):
+    (its result, the seconds, the device events' summed ms, the kernels
+    and gloo's copies between card and host (``kernel_rows``), and the
+    ``top`` events by time as [name, ms, count]); ms None and no events
+    off the card or where the trace saw none."""
+    from repro_torch.device import synchronize
+    prof = None
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    try:
+        synchronize(dev)
+        t = time.monotonic()
+        out = fn()
+        synchronize(dev)
+        seconds = time.monotonic() - t
+    finally:
+        if prof is not None:
+            prof.stop()
+    if prof is None:
+        return out, seconds, None, []
     rows = kernel_rows(prof)
     ms = sum(r[0] for r in rows)
-    return (ms or None), [[k[:60], round(t, 3), n] for t, n, k in rows[:top]]
+    return out, seconds, (ms or None), [[k[:60], round(t, 3), n]
+                                        for t, n, k in rows[:top]]
 
 
 def serving_layers(model, params, x, d, prompt, capacity, ctx_pre=None,
-                   ctx_dec=None, relay=None):
+                   ctx_dec=None, relay=None, enc=None):
     """Each layer from one input, prefill then decode (``_sublayer``):
     yields (i, layer parameters, the prefill's ``_sublayer`` outputs, the
     decode's, the decode's cache entry) with ``x(i)`` and ``d(i)`` the
     layer's inputs. The prefill's k/v (with a leading layer dim) are
     padded to ``capacity`` through ``relay`` (``pad_cache`` by default; a
-    sharded cache's reshard) for the decode token at ``prompt``."""
+    sharded cache's reshard) for the decode token at ``prompt``; the
+    audio family's prefill attends to the encoder output ``enc`` and its
+    decode to the cross K/V that the prefill wrote."""
     from repro_torch.models.transformer import _layer, pad_cache
     pre = ctx_pre or contextlib.nullcontext
     dec = ctx_dec or contextlib.nullcontext
@@ -3144,48 +3230,68 @@ def serving_layers(model, params, x, d, prompt, capacity, ctx_pre=None,
     for i in range(model.cfg.num_layers):
         lp = _layer(params["layers"]["p0"], i)
         with pre():
-            out = model._sublayer(0, lp, x(i), collect_cache=True)
+            out = model._sublayer(0, lp, x(i), collect_cache=True,
+                                  enc_out=enc)
         new = out[3]
         if "k" in new:
             entry = tuple(relay(new[k][None], capacity)[0]
                           for k in ("k", "v"))
         else:
             entry = (new["conv_state"], new["ssm_state"])
+        cross = ((new["cross_k"], new["cross_v"]) if "cross_k" in new
+                 else None)
         with dec():
             dout = model._sublayer(0, lp, d(i), cache=entry,
-                                   cache_index=prompt)
+                                   cache_index=prompt, cross=cross)
         yield i, lp, out, dout, entry
 
 
+def encoder_layer(model, lp, x):
+    """One encoder layer of the audio family on its parameters ``lp``:
+    non-causal self-attention, then the MLP, each with its residual."""
+    x, _ = model._enc_attn(lp, x)
+    return model._enc_mlp(lp, x)[0]
+
+
 def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
-                              lw_rows, path):
-    """Phase 13's one process: ``cfg`` whole (drawn as the ranks draw it)
-    through the serving steps on the (1, 1) mesh, phase 9's traffic; and
+                              lw_rows, path, drawn_from=None, seed=SEED):
+    """Phase 13's one process: ``cfg`` (drawn as the ranks draw it: as
+    ``drawn_from``, the whole model, draws its first ``cfg.num_layers``
+    layers, where given) through the serving steps on the (1, 1) mesh,
+    on the run's traffic; and
     the layer chain the ranks hold theirs against, saved to ``path``: the
     first ``lw_rows`` prompts' embedding, each layer's prefill output and
     cache entries, the decode token's input and each layer's decode output
-    and written cache (the k/v row at ``prompt``, or the ssm states).
-    Returns the readings and the tokens."""
+    and written cache (the k/v row at ``prompt``, or the ssm states); for
+    the audio family first the frames, each encoder layer's output and
+    the encoder's (normed) output. Returns the readings and the tokens."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.device import synchronize
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
-    from repro_torch.models.transformer import build_model, pad_cache
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.launch.steps import serving_param_shapes
+    from repro_torch.models.transformer import _layers, build_model, pad_cache
+    from repro_torch.tree import tree_map
     model = build_model(cfg)
     mesh = Mesh(("data", "model"), (1, 1), dev.type)
     t0 = time.monotonic()
-    params = model.init(SEED, device=dev, dtype=cfg.dtype)
+    params = build_model(drawn_from or cfg).init(
+        seed, device=dev, dtype=cfg.dtype, parts=tree_map(
+            lambda t: tuple(slice(0, n) for n in t.shape),
+            serving_param_shapes(model)))
     synchronize(dev)
     drawn = time.monotonic() - t0
-    toks = sharded_serving_tokens(cfg, batch, prompt, dev)
+    inputs = sharded_serving_batch(cfg, batch, prompt, dev)
+    toks = inputs["tokens"]
     pre = make_prefill_step(model, mesh, ShapeConfig("prefill", prompt,
                                                      batch, "prefill"))
     dec = make_decode_step(model, mesh, ShapeConfig("decode", capacity,
                                                     batch, "decode"))
-    pre.fn(params, {"tokens": toks})                  # warm-up
+    pre.fn(params, inputs)                            # warm-up
     synchronize(dev)
     t = time.monotonic()
-    logits, cache = pre.fn(params, {"tokens": toks})
+    logits, cache = pre.fn(params, inputs)
     synchronize(dev)
     prefill_s = time.monotonic() - t
     first = logits[:, -1].float()
@@ -3205,10 +3311,19 @@ def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
     d0 = model.embed_tokens(params, out[0][:lw_rows, None].long())
     chain = {"x0": x0.cpu(), "d0": d0.cpu(), "y": [], "new": [], "dy": [],
              "dnew": []}
+    enc = None
+    if cfg.encoder_layers:
+        h = inputs["encoder_embeds"][:lw_rows]
+        chain.update(frames=h.cpu(), enc=[])
+        for lp in _layers(params["encoder"]["layers"], cfg.encoder_layers):
+            h = encoder_layer(model, lp, h)
+            chain["enc"].append(h.cpu())
+        enc = rms_norm(h, params["encoder"]["norm"], cfg.rms_eps)
+        chain["enc_out"] = enc.cpu()
     xs, ds = [x0], [d0]
     for i, _, pre_out, dec_out, _ in serving_layers(
             model, params, lambda i: xs[i], lambda i: ds[i], prompt,
-            capacity):
+            capacity, enc=enc):
         y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
         xs.append(y)
         ds.append(dy)
@@ -3225,20 +3340,41 @@ def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
             "tokens_per_s": batch * steps / decode_s, "drawn_s": drawn}
 
 
-def sharded_serving_tokens(cfg, batch, prompt, dev):
+def sharded_serving_batch(cfg, batch, prompt, dev):
+    """Phase 13's prefill batch from seeds: the prompts' tokens and, for
+    the audio family, ``batch`` x frames x d_model frame embeddings."""
     rng = np.random.default_rng(SEED + 13)
-    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                        size=(batch, prompt)),
-                           dtype=torch.int32, device=dev)
+    out = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(batch, prompt)), dtype=torch.int32,
+        device=dev)}
+    if cfg.encoder_layers:
+        out["encoder_embeds"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.num_audio_frames, cfg.d_model), dtype=np.float32)
+        ).to(dev, cfg.dtype)
+    return out
+
+
+def sharded_run_config(arch, reduced, widths=(), layers=0):
+    """Phase 13's config of ``arch`` (reduced for the CPU rehearsal), on
+    the use_pallas path, with ``widths`` where given (a ``dtype`` by its
+    torch name), and the same cut to ``layers`` (0: every layer)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg.reduced() if reduced else cfg, use_pallas=True,
+        **{k: getattr(torch, v) if k == "dtype" else v for k, v in widths})
+    return cfg, dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
 
 
 def sharded_serving_rank(job_path: str) -> int:
     """``chip_smoke.py --sharded-serving-rank JOB``: one rank of phase 13
     (its process group from ``run_ranks``'s environment). Draws its
     shards, holds each layer from one input against the one-process
-    chain in the job's file, then drives the sharded prefill and decode
-    steps (launch counts zeroed just before, read just after) and traces
-    one more prefill; prints its readings as one JSON line."""
+    chain in the job's file (the audio family's encoder layers first),
+    then drives the sharded prefill, traced, and decode steps (launch
+    counts zeroed just before, read just after); prints its readings as
+    one JSON line."""
     import dataclasses
     from repro_torch import kernels
     from repro_torch.configs import ShapeConfig, get_config, kv_cache_specs
@@ -3252,16 +3388,18 @@ def sharded_serving_rank(job_path: str) -> int:
                                           init_serving_shards,
                                           make_decode_step, make_prefill_step,
                                           reshard_cache_leaf)
-    from repro_torch.models.transformer import build_model
+    from repro_torch.models.transformer import _layers, build_model
     from repro_torch.tree import tree_leaves, tree_map
     with open(job_path) as f:
         job = json.load(f)
-    init_from_env(job["timeout_s"])
+    world = init_from_env(job["timeout_s"])
+    # the ranks share the host's cores (gloo's latency grows with a
+    # crowded host)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config(job["arch"])
-    cfg = dataclasses.replace(cfg.reduced() if job["reduced"] else cfg,
-                              use_pallas=True)
+    drawn_from, cfg = sharded_run_config(job["arch"], job["reduced"],
+                                         job["widths"], job["layers"])
     mesh = Mesh(("data", "model"), tuple(job["mesh"]), job["device"])
     group = ShardGroup(mesh)
     dev = group.device
@@ -3276,17 +3414,24 @@ def sharded_serving_rank(job_path: str) -> int:
     dec = make_decode_step(model, mesh, ShapeConfig("decode", T, B,
                                                     "decode"), group)
     t = time.monotonic()
-    params = init_serving_shards(model, pre, group, SEED)
+    # the shards of the whole model's first layers (a cut run's)
+    params = init_serving_shards(build_model(drawn_from), pre, group,
+                                 job["seed"])
     synchronize(dev)
     init_s = time.monotonic() - t
+    t_chain = time.monotonic()
     local = tree_leaves(params)
-    shard_bytes = sum(p.to_local().numel() * p.to_local().element_size()
-                      for p in local)
+
+    def nbytes_of(tree):
+        return sum(t.to_local().numel() * t.to_local().element_size()
+                   for t in tree_leaves(tree))
+    shard_bytes = nbytes_of(params)
+    # the decode step never reads the encoder's weights (and the dry run,
+    # as jax.jit, drops an unread input)
+    decode_shards = shard_bytes - nbytes_of(params.get("encoder", {}))
     b_sh = pre.in_shardings[1]
-    toks = sharded_serving_tokens(cfg, B, S, dev)
-    batch = group.layout({"tokens": toks}, b_sh)
-    nbytes = {"prefill": shard_bytes + sum(
-        t.to_local().numel() * 4 for t in batch.values())}
+    batch = group.layout(sharded_serving_batch(cfg, B, S, dev), b_sh)
+    nbytes = {"prefill": shard_bytes + nbytes_of(batch)}
 
     # -- each layer from one input, against the one-process chain ----------
     chain = torch.load(job["chain"], map_location=dev)
@@ -3313,41 +3458,68 @@ def sharded_serving_rank(job_path: str) -> int:
 
     errs = {"prefill": 0.0, "prefill_cache": 0.0, "decode": 0.0,
             "decode_cache": 0.0}
+    worst_at = {}             # the layer of each largest error
     plain_errs = {}           # mixer, mlp (where a layer has one), ...
+
+    def held(key, err, layer):
+        if err >= errs.get(key, 0.0):
+            errs[key], worst_at[key] = err, layer
     passed_through = True
     lparams = tree_map(lambda t: t.to_local(), params)
+    enc = None
+    if cfg.encoder_layers:    # each encoder layer from one input
+        errs["encoder"] = 0.0
+        h = chain["frames"][rows]
+        for j, lp in enumerate(_layers(lparams["encoder"]["layers"],
+                                       cfg.encoder_layers)):
+            with use_model_axis(axes[0]):
+                y = encoder_layer(model, lp, h)
+            if j < PLAIN_LAYERS:
+                with use_model_axis(axes[0]), plain_versions():
+                    plain_errs["encoder"] = max(plain_errs.get(
+                        "encoder", 0.0), rel_err(y, encoder_layer(
+                            model, lp, h)))
+            h = chain["enc"][j][rows]
+            held("encoder", rel_err(y, h), j)
+        enc = chain["enc_out"][rows]
     xs = {0: chain["x0"][rows]}
     ds = {0: chain["d0"][rows]}
     for i, lp, pre_out, dec_out, entry in serving_layers(
             model, lparams, lambda i: xs[i], lambda i: ds[i], S, T,
             lambda: use_model_axis(axes[0]), lambda: use_model_axis(axes[1]),
-            relay):
+            relay, enc):
         y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
         if i < PLAIN_LAYERS:
             # the same layer with the kernels' plain versions (phase 9's
             # gate (c)) on the same shards, inside the same ModelAxis,
-            # from the same inputs
+            # from the same inputs; the MLP from the kernel path's mixer
+            # output, as phase 8 (b) holds whisper's (its cross-attention
+            # would carry the attention kernel's roundings into the MLP's
+            # input, amplified)
+            cross = ((pre_out[3]["cross_k"], pre_out[3]["cross_v"])
+                     if enc is not None else None)
+            with use_model_axis(axes[0]):
+                mid = model._mixer(0, lp, xs[i], enc_out=enc)[0]
             with use_model_axis(axes[0]), plain_versions():
-                p_out = model._sublayer(0, lp, xs[i], collect_cache=True)
+                p_out = model._sublayer(0, lp, xs[i], collect_cache=True,
+                                        enc_out=enc)
+                p_mlp = model._ffn(0, lp, mid)[1]
             with use_model_axis(axes[1]), plain_versions():
                 p_dout = model._sublayer(0, lp, ds[i], cache=entry,
-                                         cache_index=S)
+                                         cache_index=S, cross=cross)
             for k, got, want in (("mixer", pre_out[1], p_out[1]),
-                                 ("mlp", pre_out[2], p_out[2]),
+                                 ("mlp", pre_out[2], p_mlp),
                                  ("prefill", y, p_out[0]),
                                  ("decode", dy, p_dout[0])):
                 if want is not None:
                     plain_errs[k] = max(plain_errs.get(k, 0.0),
                                         rel_err(got, want))
-            del p_out, p_dout
-        errs["prefill"] = max(errs["prefill"],
-                              rel_err(y, chain["y"][i][rows]))
-        errs["decode"] = max(errs["decode"],
-                             rel_err(dy, chain["dy"][i][rows]))
+            del p_out, p_dout, p_mlp, mid
+        held("prefill", rel_err(y, chain["y"][i][rows]), i)
+        held("decode", rel_err(dy, chain["dy"][i][rows]), i)
         for k, v in new.items():
             want = chain["new"][i][k][part(k, pre_specs, pre.out_shardings[1])]
-            errs["prefill_cache"] = max(errs["prefill_cache"],
-                                        rel_err(v, want))
+            held("prefill_cache", rel_err(v, want), i)
         for k, v in dnew.items():
             if k in ("k", "v"):
                 sl = part(k, dec_specs, dec.in_shardings[1]["cache"])
@@ -3355,8 +3527,8 @@ def sharded_serving_rank(job_path: str) -> int:
                 old = entry[("k", "v").index(k)]
                 if owner:
                     at = S - sl[1].start
-                    errs["decode_cache"] = max(errs["decode_cache"], rel_err(
-                        v[:, at], chain["dnew"][i][k][sl[0], sl[2]]))
+                    held("decode_cache", rel_err(
+                        v[:, at], chain["dnew"][i][k][sl[0], sl[2]]), i)
                     keep = torch.cat([v[:, :at], v[:, at + 1:]], dim=1)
                     kept = torch.cat([old[:, :at], old[:, at + 1:]], dim=1)
                 else:
@@ -3365,22 +3537,19 @@ def sharded_serving_rank(job_path: str) -> int:
             else:
                 want = chain["dnew"][i][k][part(k, dec_specs,
                                                 dec.in_shardings[1]["cache"])]
-                errs["decode_cache"] = max(errs["decode_cache"],
-                                           rel_err(v, want))
+                held("decode_cache", rel_err(v, want), i)
         xs[i + 1], ds[i + 1] = chain["y"][i][rows], chain["dy"][i][rows]
         del xs[i], ds[i]
-    del chain, xs, ds
+    del chain, xs, ds, enc
+    chain_s = time.monotonic() - t_chain
 
     # -- the main path: the sharded steps, counted -------------------------
     for fam in kernels.FAMILIES:
         fam.reset_counts()
     comm0 = group.comm_s
     with recorded_launch_shapes() as shapes:
-        synchronize(dev)
-        t = time.monotonic()
-        logits, cache = pre.sharded_fn(params, batch)
-        synchronize(dev)
-        prefill_s = time.monotonic() - t
+        (logits, cache), prefill_s, device_ms, device_top = traced(
+            lambda: pre.sharded_fn(params, batch), dev)
         prefill_comm = group.comm_s - comm0
         first = group.gather(logits, pre.out_shardings[0])[:, -1].float()
         out = [first.argmax(dim=-1)]
@@ -3396,10 +3565,8 @@ def sharded_serving_rank(job_path: str) -> int:
             db.update(cache=kv, cache_index=torch.tensor(
                 S + i, dtype=torch.int32))
             if i == 0:
-                nbytes["decode"] = shard_bytes + sum(
-                    v.to_local().numel() * v.to_local().element_size()
-                    for v in tree_leaves((db["tokens"], kv))) + 4 * (
-                        "k" in kv)
+                nbytes["decode"] = decode_shards + nbytes_of(
+                    (db["tokens"], kv)) + 4 * ("k" in kv)
             logits, kv = dec.sharded_fn(params, db)
             out.append(group.gather(logits, dec.out_shardings[0])[:, -1]
                        .argmax(dim=-1))
@@ -3411,19 +3578,20 @@ def sharded_serving_rank(job_path: str) -> int:
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
     del kv, logits
-    device_ms, device_top = device_busy_ms(
-        lambda: pre.sharded_fn(params, batch), dev)
     torch.save({"first_logits": first.cpu()},
                f"{job['out']}.{group.rank}.pt")
     print(json.dumps({
         "rank": group.rank, "mesh": list(mesh.shape), "coords": group.coords,
         "devices": sorted({str(p.to_local().device) for p in local}),
-        "init_s": init_s, "shard_bytes": shard_bytes, "bytes": nbytes,
+        "init_s": init_s, "chain_s": chain_s, "decode_s": sum(step_s),
+        "shard_bytes": shard_bytes, "bytes": nbytes,
         "peak": peak, "errs": errs, "plain_errs": plain_errs,
+        "worst_at": worst_at,
         "passed_through": passed_through,
         "shapes_ok": launch_shapes_gate(cfg, shapes, len(range(
             *group.slices(NamedSharding(mesh, PartitionSpec(data or None)),
-                          (B,))[0].indices(B))), size),
+                          (B,))[0].indices(B))), size,
+            group.coords["model"]),
         "shapes": {k: sorted(v) for k, v in shapes.items()},
         "prefill_ms": prefill_s * 1e3, "prefill_comm_ms": prefill_comm * 1e3,
         "prefill_device_ms": device_ms, "prefill_device_top": device_top,
@@ -3434,216 +3602,255 @@ def sharded_serving_rank(job_path: str) -> int:
     return 0
 
 
-def sharded_serving_main(job_path: str) -> int:
-    """``chip_smoke.py --sharded-serving JOB``: phase 13's ranks, two
-    processes of one gloo group (``run_ranks``, each
-    ``--sharded-serving-rank JOB``); prints their JSON lines as one list,
-    or exits 1 with a failed rank's errors."""
-    from repro_torch.launch.mesh import run_ranks
-    with open(job_path) as f:
-        job = json.load(f)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    ranks = run_ranks([sys.executable, str(Path(__file__).resolve()),
-                       "--sharded-serving-rank", job_path],
-                      math.prod(job["mesh"]), job["timeout_s"], env=env,
-                      cwd=str(ROOT))
-    for r, (code, out, err) in enumerate(ranks):
-        if code != 0:
-            print(f"rank {r} exited {code}:\n{out[-2000:]}\n{err[-6000:]}",
-                  file=sys.stderr)
-            return 1
-    print(json.dumps([json.loads(out.strip().splitlines()[-1])
-                      for _, out, _ in ranks]))
-    return 0
-
-
-def sharded_serving_phase(dev, archs=SHARDED_SERVING, reduced=False,
-                          batch=STEPS_BATCH, prompt=STEPS_PROMPT,
-                          capacity=STEPS_CAPACITY, steps=STEPS_NEW,
+def sharded_serving_phase(dev, waves=SHARDED_SERVING, reduced=False,
                           timeout_s=600.0):
-    """Phase 13: the serving steps' ``sharded_fn`` on each mesh of
-    ``archs`` (two ranks of one gloo group, both on ``dev``: ``cuda:0`` on
-    the card), on the use_pallas path, against one process running the
-    same steps on the same weights (``sharded_serving_reference``, run
-    here first and freed). Gates, for every rank: each layer from one
-    input, prefill and decode outputs and cache (the k/v at the rank's
-    positions, the row the decode token writes, the ssm states) within
-    PLAIN_TOL of one process, the rest of the cache passed through; the
-    first PLAIN_LAYERS layers' mixer, MLP and outputs through the kernels
+    """Phase 13: the serving steps' ``sharded_fn`` for each run of
+    ``waves`` (``ShardedRun``: an arch on its meshes and traffic), one
+    gloo group of ranks a mesh, all on ``dev`` (``cuda:0`` on the card),
+    on the use_pallas path, against one process running the same steps
+    on the same weights (``sharded_serving_reference``, run here first
+    and freed). A wave's references run one by one, then the ranks of
+    all its meshes at once. Gates, for every rank: each layer from one
+    input (the audio family's encoder layers too), prefill and decode
+    outputs and cache (the k/v at the rank's positions, the row the
+    decode token writes, the cross K/V, the ssm states) within PLAIN_TOL
+    of one process, the rest of the cache passed through; the first
+    PLAIN_LAYERS layers' mixer, MLP and outputs through the kernels
     within PLAIN_TOL of the same layers through their plain versions, on
     the same shards inside the same ModelAxis, from the same inputs;
     argument bytes equal ``dryrun.price``'s for the mesh; peak memory
-    below its shards plus the largest leaf in f32 (a draw holds at most
-    that) plus the dry run's temporaries and outputs, and below the whole
-    model where the weights outweigh those; every launch at a shard's
-    shape; every kernel family of the path launched. Printed:
-    host and device ms of a prefill per rank, the collectives' share,
-    decode tokens/s, the full-depth first logits and greedy tokens
-    beside one process. Returns the ranks' summed launch counts; raises
-    at the end if a kernel of a path launched no time (as on the CPU,
-    where the plain versions launch nothing)."""
-    import dataclasses
+    below the step's arguments (the shards, the batch and the cache: the
+    dry run's argument bytes) plus the largest leaf in f32 (a draw holds
+    at most that) plus the dry run's temporaries and outputs, and below
+    the whole model where the weights outweigh those; every launch at
+    the rank's shard shapes, a rank left without heads launching no
+    flash or SSD kernel; every kernel family of the path launched on
+    some rank. Printed: host and device ms of a prefill per rank, the
+    collectives' share, decode tokens/s, the first logits and greedy
+    tokens beside one process, each wave's seconds. Returns the ranks'
+    summed launch counts; raises at the end if a kernel of a path
+    launched no time (as on the CPU, where the plain versions launch
+    nothing)."""
+    import concurrent.futures as cf
     import tempfile
-    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.monotonic()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    total, missed = {}, {}
+    with tempfile.TemporaryDirectory(prefix="phase13-") as tmp:
+        for w, wave in enumerate(waves):
+            t_wave = time.monotonic()
+            jobs = [job for k, run in enumerate(wave) for job in
+                    sharded_serving_jobs(run, dev, reduced, timeout_s,
+                                         os.path.join(tmp, f"{w}_{k}"))]
+            with cf.ThreadPoolExecutor(len(jobs)) as ex:
+                done = list(ex.map(lambda j: run_ranks(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--sharded-serving-rank", j["path"]],
+                    math.prod(j["shape"]), timeout_s, env=env,
+                    cwd=str(ROOT)), jobs))
+            for job, ranks in zip(jobs, done):
+                launches = sharded_serving_held(job, ranks)
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+                cfg, shape = job["cfg"], job["shape"]
+                need = (("ssd_plain",) if cfg.family == "ssm"
+                        else ("matmul_plain", "flash_plain"))
+                if cfg.dtype == torch.float32:      # a probe's f32 run
+                    need = tuple(k.replace("_plain", "_fma_plain")
+                                 for k in need)
+                else:
+                    cuda_core_guard(launches, f"sharded serving {shape}")
+                print(f"  launches on {shape}, all {len(ranks)} ranks: "
+                      f"{ {k: launches[k] for k in need} }", flush=True)
+                missed.update({f"{cfg.name} {shape} {k}": launches[k]
+                               for k in need if not launches[k]})
+            names = ", ".join(f"{j['cfg'].name} {j['shape']}" for j in jobs)
+            print(f"  wave {w} ({names}) in {time.monotonic() - t_wave:.1f}"
+                  " s", flush=True)
+    print(f"  phase 13 in {time.monotonic() - t0:.1f} s", flush=True)
+    if missed:
+        raise AssertionError(f"phase 13: the sharded steps' launches miss a "
+                             f"kernel of the path: {missed}")
+    return total
+
+
+def sharded_serving_jobs(run, dev, reduced, timeout_s, prefix):
+    """One ``ShardedRun``'s one process (``sharded_serving_reference``,
+    its chain saved at ``prefix``, the card freed after) and a rank job
+    for each of its meshes: the job file at ``prefix`` and what the
+    ranks are held to (the dry run's bytes, the peak's bound)."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import Mesh
     from repro_torch.launch.steps import (serving_param_shapes,
                                           serving_param_shardings)
     from repro_torch.models.transformer import build_model
     from repro_torch.tree import tree_leaves
-    t0 = time.monotonic()
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    batch, prompt, capacity, steps = run.traffic
+    drawn_from, cfg = sharded_run_config(run.arch, reduced, run.widths,
+                                         run.layers)
     where = f"{dev.type}:0" if dev.type == "cuda" else "cpu"
-    total, missed = {}, {}
-    for arch, meshes in archs:
-        base = get_config(arch)
-        cfg = dataclasses.replace(base.reduced() if reduced else base,
-                                  use_pallas=True)
-        lw_rows = max(m[0] for m in meshes)
-        with tempfile.TemporaryDirectory(prefix="phase13-") as tmp:
-            chain = os.path.join(tmp, "chain.pt")
-            one = sharded_serving_reference(cfg, dev, batch, prompt,
-                                            capacity, steps, lw_rows, chain)
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-            shapes = serving_param_shapes(build_model(cfg))
-            leaves = tree_leaves(shapes)
-            whole = sum(t.numel() * t.element_size() for t in leaves)
-            largest = max(t.numel() * t.element_size() for t in leaves)
-            # a leaf is drawn in f32 (at most the whole leaf at once)
-            draw = max(t.numel() * 4 for t in leaves)
-            print(f"  {cfg.name}: {cfg.num_layers} layers, d_model "
-                  f"{cfg.d_model}, {whole / 2 ** 30:.2f} GiB of "
-                  f"{cfg.dtype} weights (largest leaf "
-                  f"{largest / 2 ** 30:.2f} GiB); one process on {where}: "
-                  f"drawn in {one['drawn_s']:.1f} s, a {batch} x {prompt} "
-                  f"prefill {one['prefill_ms']:.1f} ms (host clock), "
-                  f"{steps} decode steps {one['tokens_per_s']:.1f} "
-                  f"tokens/s; greedy tokens {one['tokens'].tolist()}",
-                  flush=True)
-            for shape in meshes:
-                mesh = Mesh(("data", "model"), shape, dev.type)
-                priced = {k: dryrun.price(
-                    dataclasses.replace(cfg, use_pallas=False),
-                    ShapeConfig(k, n, batch, k), mesh)
-                          for k, n in (("prefill", prompt),
-                                       ("decode", capacity))}
-                want = {k: v["memory"]["argument_size_in_bytes"]
-                        for k, v in priced.items()}
-                temps = max(v["memory"]["temp_size_in_bytes"]
-                            + v["memory"]["output_size_in_bytes"]
-                            for v in priced.values())
-                shs = tree_leaves(serving_param_shardings(
-                    build_model(cfg).param_axes(), shapes, mesh))
-                shard = sum(math.prod(s.shard_shape(t.shape))
-                            * t.element_size() for t, s in zip(leaves, shs))
-                job = os.path.join(tmp, f"job_{shape[0]}x{shape[1]}.json")
-                with open(job, "w") as f:
-                    json.dump({"arch": arch, "reduced": reduced,
-                               "mesh": list(shape), "device": dev.type,
-                               "batch": batch, "prompt": prompt,
-                               "capacity": capacity, "steps": steps,
-                               "chain": chain, "timeout_s": timeout_s,
-                               "out": os.path.join(tmp, "logits")}, f)
-                code, stdout, stderr = run_tree(
-                    [sys.executable, str(Path(__file__).resolve()),
-                     "--sharded-serving", job], timeout_s + 60, env)
-                if code != 0:
-                    raise AssertionError(f"phase 13 {cfg.name} {shape}: the "
-                                         f"ranks exited {code}:\n"
-                                         f"{stderr[-6000:]}")
-                ranks = json.loads(stdout.strip().splitlines()[-1])
-                bound = shard + draw + temps
-                # below the whole model where the weights outweigh what a
-                # step and a draw hold beside them (not so for mamba2-130m)
-                whole_gate = shape[1] > 1 and whole > 2 * (draw + temps)
-                logit_err = max(rel_err(torch.load(
-                    os.path.join(tmp, f"logits.{r['rank']}.pt"))[
-                        "first_logits"], one["first_logits"])
-                    for r in ranks)
-                same = sum(r["tokens"] == one["tokens"].tolist()
-                           for r in ranks)
-                for r in ranks:
-                    e = r["errs"]
-                    peak_ok = r["peak"] is None or (
-                        r["peak"] < bound
-                        and not (whole_gate and r["peak"] >= whole))
-                    pe = r["plain_errs"]
-                    ok = (max(e.values()) <= PLAIN_TOL
-                          and max(pe.values()) <= PLAIN_TOL
-                          and r["passed_through"]
-                          and r["bytes"] == want and r["shard_bytes"] == shard
-                          and peak_ok and r["shapes_ok"]
-                          and r["devices"] == [where])
-                    peak = ("not measured" if r["peak"] is None else
-                            f"{r['peak'] / 2 ** 30:.2f} GiB [< shards "
-                            f"{shard / 2 ** 30:.2f} + the largest leaf in "
-                            f"f32 + the dry run's temporaries and outputs = "
-                            f"{bound / 2 ** 30:.2f} GiB"
-                            + (f", < the whole model's "
-                               f"{whole / 2 ** 30:.2f} GiB]" if whole_gate
-                               else "]"))
-                    dms = ("not measured" if r["prefill_device_ms"] is None
-                           else f"{r['prefill_device_ms']:.3f}")
-                    print(f"  {cfg.name} {shape} rank {r['rank']} "
-                          f"{r['coords']} on {r['devices']}: layer by layer "
-                          f"from one input against one process, prefill "
-                          f"{e['prefill']:.2e}, its cache "
-                          f"{e['prefill_cache']:.2e}, decode {e['decode']:.2e}"
-                          f", its written cache {e['decode_cache']:.2e} [<= "
-                          f"{PLAIN_TOL:g}], the rest passed through "
-                          f"{r['passed_through']}; the kernels against their "
-                          f"plain versions on the shards, {PLAIN_LAYERS} "
-                          f"layers: " + ", ".join(
-                              f"{k} {v:.2e}" for k, v in pe.items())
-                          + f" [<= {PLAIN_TOL:g}]; "
-                          f"bytes {r['bytes']}, dry "
-                          f"run {want}; peak {peak}; launches at shard "
-                          f"shapes {r['shapes_ok']}; shards drawn in "
-                          f"{r['init_s']:.1f} s; prefill "
-                          f"{r['prefill_ms']:.1f} ms host ({dms} ms device),"
-                          f" collectives {r['prefill_comm_ms']:.1f} ms "
-                          f"({r['prefill_comm_ms'] / r['prefill_ms']:.0%}); "
-                          f"decode {r['tokens_per_s']:.1f} tokens/s (one "
-                          f"process {one['tokens_per_s']:.1f}), collectives "
-                          f"{r['decode_comm_ms']:.1f} ms "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
-                    if not ok:
-                        raise AssertionError(
-                            f"phase 13 {cfg.name} {shape} rank {r['rank']}: "
-                            "a layer, a kernel against its plain version, "
-                            "the cache, the bytes, the peak, the launch "
-                            "shapes or the device disagree")
-                if ranks[0]["prefill_device_top"]:
-                    print(f"  {cfg.name} {shape} rank 0's prefill, top "
-                          f"device events [name, ms, count]: "
-                          f"{json.dumps(ranks[0]['prefill_device_top'])}",
-                          flush=True)
-                print(f"  {cfg.name} {shape}: full depth, first-token "
-                      f"logits against one process {logit_err:.2e} (not "
-                      f"gated: the random layers amplify the sums' order), "
-                      f"greedy tokens equal on {same} of {len(ranks)} ranks "
-                      f"(not gated); launch shapes "
-                      f"{json.dumps(ranks[0]['shapes'])}", flush=True)
-                launches = {}
-                for r in ranks:
-                    for k, v in r["launches"].items():
-                        launches[k] = launches.get(k, 0) + v
-                for k, v in launches.items():
-                    total[k] = total.get(k, 0) + v
-                need = (("ssd_plain",) if cfg.family == "ssm"
-                        else ("matmul_plain", "flash_plain"))
-                print(f"  launches on {shape}, both ranks: "
-                      f"{ {k: launches[k] for k in need} }", flush=True)
-                cuda_core_guard(launches, f"sharded serving {shape}")
-                missed.update({f"{cfg.name} {shape} {k}": launches[k]
-                               for k in need if not launches[k]})
-    print(f"  phase 13 in {time.monotonic() - t0:.1f} s", flush=True)
-    if missed:
-        raise AssertionError(f"phase 13: the sharded steps' launches miss a "
-                             f"kernel of the path: {missed}")
-    return total
+    chain = f"{prefix}.chain.pt"
+    one = sharded_serving_reference(cfg, dev, batch, prompt, capacity,
+                                    steps, max(m[0] for m in run.meshes),
+                                    chain, drawn_from, run.seed)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    shapes = serving_param_shapes(build_model(cfg))
+    leaves = tree_leaves(shapes)
+    whole = sum(t.numel() * t.element_size() for t in leaves)
+    largest = max(t.numel() * t.element_size() for t in leaves)
+    # a leaf is drawn in f32 (at most the whole leaf at once)
+    draw = max(t.numel() * 4 for t in leaves)
+    print(f"  {cfg.name}: {cfg.num_layers} layers"
+          + (f" (+ {cfg.encoder_layers} encoder)"
+             if cfg.encoder_layers else "")
+          + f", d_model {cfg.d_model}, {whole / 2 ** 30:.2f} GiB of "
+          f"{cfg.dtype} weights (largest leaf {largest / 2 ** 30:.2f} GiB);"
+          f" one process on {where}: drawn in {one['drawn_s']:.1f} s, a "
+          f"{batch} x {prompt} prefill {one['prefill_ms']:.1f} ms (host "
+          f"clock), {steps} decode steps {one['tokens_per_s']:.1f} tokens/s;"
+          f" greedy tokens {one['tokens'].tolist()}", flush=True)
+    jobs = []
+    for shape in run.meshes:
+        mesh = Mesh(("data", "model"), shape, dev.type)
+        priced = {k: dryrun.price(
+            dataclasses.replace(cfg, use_pallas=False),
+            ShapeConfig(k, n, batch, k), mesh)
+                  for k, n in (("prefill", prompt), ("decode", capacity))}
+        want = {k: v["memory"]["argument_size_in_bytes"]
+                for k, v in priced.items()}
+        temps = max(v["memory"]["temp_size_in_bytes"]
+                    + v["memory"]["output_size_in_bytes"]
+                    for v in priced.values())
+        shs = tree_leaves(serving_param_shardings(
+            build_model(cfg).param_axes(), shapes, mesh))
+        shard = sum(math.prod(s.shard_shape(t.shape)) * t.element_size()
+                    for t, s in zip(leaves, shs))
+        path = f"{prefix}.{shape[0]}x{shape[1]}"
+        with open(f"{path}.json", "w") as f:
+            json.dump({"arch": run.arch, "reduced": reduced,
+                       "widths": list(run.widths), "layers": run.layers,
+                       "seed": run.seed,
+                       "mesh": list(shape), "device": dev.type,
+                       "batch": batch, "prompt": prompt,
+                       "capacity": capacity, "steps": steps,
+                       "chain": chain, "timeout_s": timeout_s,
+                       "out": f"{path}.logits"}, f)
+        jobs.append({"cfg": cfg, "shape": shape, "path": f"{path}.json",
+                     "out": f"{path}.logits", "one": one, "want": want,
+                     "shard": shard, "whole": whole, "where": where,
+                     # the step's arguments (the weights' shards, the batch
+                     # and, in decode, the cache), a leaf's draw, and its
+                     # temporaries and outputs
+                     "bound": max(want.values()) + draw + temps,
+                     # below the whole model where the weights outweigh
+                     # what a step and a draw hold beside them (not so
+                     # for mamba2-130m)
+                     "whole_gate": shape[1] > 1 and whole > 2 * (draw
+                                                                 + temps)})
+    return jobs
+
+
+def sharded_serving_held(job, done):
+    """One mesh's ranks (``run_ranks``'s results) held to their gates and
+    printed, a line a rank; raises if a rank failed or a gate. Returns
+    the ranks' summed launch counts."""
+    cfg, shape, one = job["cfg"], job["shape"], job["one"]
+    want, shard, bound = job["want"], job["shard"], job["bound"]
+    whole, whole_gate, where = job["whole"], job["whole_gate"], job["where"]
+    for r, (code, _, err) in enumerate(done):
+        if code != 0:
+            raise AssertionError(f"phase 13 {cfg.name} {shape}: rank {r} "
+                                 f"exited {code}:\n{err[-6000:]}")
+    ranks = [json.loads(out.strip().splitlines()[-1]) for _, out, _ in done]
+    steps = len(one["tokens"][0]) - 1
+    logit_err = max(rel_err(torch.load(
+        f"{job['out']}.{r['rank']}.pt")[
+            "first_logits"], one["first_logits"])
+        for r in ranks)
+    same = sum(r["tokens"] == one["tokens"].tolist()
+               for r in ranks)
+    failed = []
+    for r in ranks:
+        e = r["errs"]
+        peak_ok = r["peak"] is None or (
+            r["peak"] < bound
+            and not (whole_gate and r["peak"] >= whole))
+        pe = r["plain_errs"]
+        ok = (max(e.values()) <= PLAIN_TOL
+              and max(pe.values()) <= PLAIN_TOL
+              and r["passed_through"]
+              and r["bytes"] == want and r["shard_bytes"] == shard
+              and peak_ok and r["shapes_ok"]
+              and r["devices"] == [where])
+        peak = ("not measured" if r["peak"] is None else
+                f"{r['peak'] / 2 ** 30:.2f} GiB [< the "
+                f"arguments {max(want.values()) / 2 ** 30:.2f} "
+                f"(shards {shard / 2 ** 30:.2f}) + the largest "
+                f"leaf in f32 + the dry run's temporaries and "
+                f"outputs = {bound / 2 ** 30:.2f} GiB"
+                + (f", < the whole model's "
+                   f"{whole / 2 ** 30:.2f} GiB]" if whole_gate
+                   else "]"))
+        dms = ("not measured" if r["prefill_device_ms"] is None
+               else f"{r['prefill_device_ms']:.3f}")
+        print(f"  {cfg.name} {shape} rank {r['rank']} "
+              f"{r['coords']} on {r['devices']}: layer by layer "
+              f"from one input against one process, "
+              + (f"encoder {e['encoder']:.2e}, "
+                 if "encoder" in e else "")
+              + f"prefill {e['prefill']:.2e}, its cache "
+              f"{e['prefill_cache']:.2e}, decode {e['decode']:.2e}"
+              f", its written cache {e['decode_cache']:.2e} [<= "
+              f"{PLAIN_TOL:g}] (worst layers {r['worst_at']}), "
+              f"the rest passed through "
+              f"{r['passed_through']}; the kernels against their "
+              f"plain versions on the shards, {PLAIN_LAYERS} "
+              f"layers: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in pe.items())
+              + f" [<= {PLAIN_TOL:g}]; "
+              f"bytes {r['bytes']}, dry "
+              f"run {want}; peak {peak}; launches at shard "
+              f"shapes {r['shapes_ok']}; shards drawn in "
+              f"{r['init_s']:.1f} s, layers held in "
+              f"{r['chain_s']:.1f} s, {steps} decode steps in "
+              f"{r['decode_s']:.1f} s; prefill "
+              f"{r['prefill_ms']:.1f} ms host ({dms} ms device),"
+              f" collectives {r['prefill_comm_ms']:.1f} ms "
+              f"({r['prefill_comm_ms'] / r['prefill_ms']:.0%}); "
+              f"decode {r['tokens_per_s']:.1f} tokens/s (one "
+              f"process {one['tokens_per_s']:.1f}), collectives "
+              f"{r['decode_comm_ms']:.1f} ms "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failed.append(r["rank"])
+    if failed:
+        raise AssertionError(
+            f"phase 13 {cfg.name} {shape} ranks {failed}: a "
+            "layer, a kernel against its plain version, the "
+            "cache, the bytes, the peak, the launch shapes or "
+            "the device disagree")
+    if ranks[0]["prefill_device_top"]:
+        print(f"  {cfg.name} {shape} rank 0's prefill, top "
+              f"device events [name, ms, count]: "
+              f"{json.dumps(ranks[0]['prefill_device_top'])}",
+              flush=True)
+    print(f"  {cfg.name} {shape}: all {cfg.num_layers} layers, "
+          f"first-token "
+          f"logits against one process {logit_err:.2e} (not "
+          f"gated: the random layers amplify the sums' order), "
+          f"greedy tokens equal on {same} of {len(ranks)} ranks "
+          f"(not gated); launch shapes "
+          f"{json.dumps(ranks[0]['shapes'])}", flush=True)
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 GLOO_OPS = ("all_reduce/float32", "all_reduce/int64", "all_reduce/bfloat16",
@@ -3717,6 +3924,109 @@ def gloo_probe_main() -> int:
     return 0
 
 
+# phase 13's layer-by-layer gate on other draws (``--phase13-draws``):
+# qwen2.5-14b's first 8 layers on (1, 2), drawn as an 8-layer model (seed
+# 0's decode read 1.01e-2 > PLAIN_TOL) and as the whole model draws them,
+# at seeds 0, 1 and 2 each, and the 8-layer model of seed 0 in f32
+QWEN_8 = (("num_layers", 8),)
+PHASE13_DRAWS = tuple(
+    ShardedRun("qwen2.5-14b", ((1, 2),), STEPS_TRAFFIC, widths, layers, seed)
+    for widths, layers in ((QWEN_8, 0), ((), 8)) for seed in (0, 1, 2)) + (
+    ShardedRun("qwen2.5-14b", ((1, 2),), STEPS_TRAFFIC,
+               QWEN_8 + (("dtype", "float32"),)),)
+# ``--reduce-probe``: the model axis's two ways to sum, timed on each side
+# of SMALL_REDUCE_BYTES for each of these numbers of ranks on the card
+REDUCE_PROBE_RANKS = (2, 3, 16)
+REDUCE_PROBE_BYTES = (4 << 10, 64 << 10, 256 << 10, 1 << 20, 4 << 20,
+                      16 << 20, 42 << 20)
+REDUCE_PROBE_REPS = 7
+
+
+def phase13_draws_main() -> int:
+    """``chip_smoke.py --phase13-draws``: phase 13 on each run of
+    ``PHASE13_DRAWS`` in turn, each printed whether or not its gates
+    pass; exit 1 if any failed."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line(), flush=True)
+    kernels.build_all()
+    failed = 0
+    for run in PHASE13_DRAWS:
+        print(f"[13] {run}", flush=True)
+        try:
+            sharded_serving_phase(torch.device("cuda"), ((run,),))
+        except AssertionError as e:
+            failed += 1
+            print(f"  FAILED: {str(e)[:600]}", flush=True)
+    return 1 if failed else 0
+
+
+def reduce_probe_rank() -> int:
+    """``chip_smoke.py --reduce-probe-rank``: one rank of the probe. A
+    ``ModelAxis`` of all the ranks sums f32 tensors of each of
+    ``REDUCE_PROBE_BYTES`` on the card, as an all-gather and a local sum
+    and as an all_reduce, the two alternating; rank 0 prints each one's
+    median host ms (ending in a synchronize) as one JSON line."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh, init_from_env
+    world = init_from_env()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch.device import synchronize
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else \
+        torch.device("cpu")
+    group = sharding.ShardGroup(Mesh(("data", "model"), (1, world),
+                                     dev.type), dev)
+    ax = sharding.ModelAxis(group)
+    out = {}
+    for nbytes in REDUCE_PROBE_BYTES:
+        x = torch.full((nbytes // 4,), float(group.rank + 1), device=dev)
+        want = world * (world + 1) / 2
+        times = {"gather": [], "all_reduce": []}
+        for rep in range(REDUCE_PROBE_REPS + 1):
+            for way, limit in (("gather", nbytes), ("all_reduce", -1)):
+                sharding.SMALL_REDUCE_BYTES = limit
+                synchronize(dev)
+                t = time.monotonic()
+                y = ax.sum(x)
+                synchronize(dev)
+                if rep:                            # the first is warm-up
+                    times[way].append((time.monotonic() - t) * 1e3)
+                assert float(y[0]) == float(y[-1]) == want, (way, y[0])
+        out[nbytes] = {k: statistics.median(v) for k, v in times.items()}
+    if group.rank == 0:
+        print(json.dumps(out), flush=True)
+    return 0
+
+
+def reduce_probe_main() -> int:
+    """``chip_smoke.py --reduce-probe``: ``reduce_probe_rank`` on each
+    number of ranks of ``REDUCE_PROBE_RANKS``, all on ``cuda:0``, sharing
+    the host as phase 13's ranks do; a line a size."""
+    from repro_torch.launch.mesh import run_ranks
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    for n in REDUCE_PROBE_RANKS:
+        ranks = run_ranks([sys.executable, str(Path(__file__).resolve()),
+                           "--reduce-probe-rank"], n, 300, env=env)
+        if any(c for c, _, _ in ranks):
+            print(f"  {n} ranks failed: {ranks[0][2][-2000:]}", flush=True)
+            return 1
+        for nbytes, ms in json.loads(
+                ranks[0][1].strip().splitlines()[-1]).items():
+            print(f"  {n} ranks, {int(nbytes)} B f32: all-gather + sum "
+                  f"{ms['gather']:.3f} ms, all_reduce "
+                  f"{ms['all_reduce']:.3f} ms (median of "
+                  f"{REDUCE_PROBE_REPS}, host clock)", flush=True)
+    return 0
+
+
 def restart_main(ckpt_dir: str) -> int:
     """``chip_smoke.py --restart-gate DIR``: gate (c) alone, under
     deterministic algorithms (the caller sets CUBLAS_WORKSPACE_CONFIG)."""
@@ -3748,7 +4058,7 @@ def main() -> int:
     card = card_line()
     print(f"[1] card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    t0 = time.monotonic()
+    t0 = t_script = time.monotonic()
     built = kernels.build_all()
     print(f"  built {built} in {time.monotonic() - t0:.1f} s", flush=True)
     for name, log in _build.build_logs.items():
@@ -3903,9 +4213,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("[13] the serving steps sharded over a mesh of processes, "
-          "tensor-parallel on the model axis: qwen2.5-14b whole in bf16 on "
-          "(1, 2), mamba2-130m whole on (1, 2) and (2, 1), two ranks of one "
-          "gloo group on the card", flush=True)
+          "tensor-parallel on the model axis, the ranks of one gloo group "
+          "on the card: qwen2.5-14b in bf16 cut to its first 8 layers on "
+          "(1, 2) and whole on (1, 3), mamba2-130m cut to its first 8 "
+          "layers on (1, 2) and (2, 1) and whole on (1, 16), whisper-base "
+          "whole on (1, 3)", flush=True)
     p_counts = sharded_serving_phase(dev)
 
     summary = []
@@ -3929,6 +4241,7 @@ def main() -> int:
                 "launches_by_path": by_path,
                 **r, "max_abs_err": errs[label][form]})
     print(card)
+    print(f"phases 1-13 in {time.monotonic() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3943,8 +4256,12 @@ if __name__ == "__main__":
         sys.exit(gloo_probe_main())
     if sys.argv[1:2] == ["--gloo-probe-rank"]:
         sys.exit(gloo_probe_rank(sys.argv[2]))
-    if sys.argv[1:2] == ["--sharded-serving"]:
-        sys.exit(sharded_serving_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--reduce-probe"]:
+        sys.exit(reduce_probe_main())
+    if sys.argv[1:2] == ["--reduce-probe-rank"]:
+        sys.exit(reduce_probe_rank())
+    if sys.argv[1:2] == ["--phase13-draws"]:
+        sys.exit(phase13_draws_main())
     if sys.argv[1:2] == ["--sharded-serving-rank"]:
         sys.exit(sharded_serving_rank(sys.argv[2]))
     sys.exit(main())

@@ -405,6 +405,24 @@ class ShardGroup:
 # ---------------------------------------------------------------------------
 
 _WIDE = {torch.bfloat16: torch.float32, torch.float16: torch.float32}
+# a reduction of at most this many bytes runs as an all-gather and a sum
+# (or max) in the axis's order on every rank: gloo's ring all-reduce takes
+# 2 (n - 1) hops and its all-gather n - 1, and on a host crowded with
+# ranks a hop costs milliseconds. ``chip_smoke.py --reduce-probe`` (f32 on
+# an H100, 2, 3 and 16 ranks sharing the host's 8 cores) found the gather
+# faster at 4 KB to 256 KB on every count (1.4-1.9x on 16 ranks), the
+# all_reduce faster from 1 MB on 16 ranks and from 4 MB on 2 and 3
+SMALL_REDUCE_BYTES = 256 << 10
+
+
+def ceil_split(n: int, size: int, index: int) -> Tuple[int, int]:
+    """Rank ``index``'s range ``(lo, hi)`` of ``n`` entries split over
+    ``size`` ranks as GSPMD pads a dim that they do not divide:
+    ``ceil(n / size)`` a rank in order, the last ranks fewer or none (an
+    even split where ``size`` divides n)."""
+    per = -(-n // size)
+    lo = min(index * per, n)
+    return lo, min(lo + per, n)
 
 
 class LocalAxis:
@@ -419,8 +437,68 @@ class LocalAxis:
     def max(self, x: torch.Tensor) -> torch.Tensor:
         return x
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return x
+    def _all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's ``x`` (all of one shape), in the axis's order."""
+        return [x]
+
+    def split(self, n: int, index: Optional[int] = None) -> Tuple[int, int]:
+        """Rank ``index``'s (this rank's by default) ``ceil_split`` of
+        ``n`` entries over the axis."""
+        return ceil_split(n, self.size, self.index if index is None
+                          else index)
+
+    def gather(self, x: torch.Tensor, dim: int,
+               n: Optional[int] = None) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in their order on the
+        axis: equal parts, or, given ``n``, the parts of ``split(n)``
+        (each padded with zeros to the largest for the collective and
+        trimmed after, so a rank with no part sends zeros and receives
+        every part)."""
+        if self.size == 1:
+            return x
+        dim = dim % x.ndim
+        if n is None:
+            return torch.cat(self._all_gather(x), dim)
+        per = -(-n // self.size)
+        pad = list(x.shape)
+        pad[dim] = per - x.shape[dim]
+        parts = self._all_gather(torch.cat([x, x.new_zeros(pad)], dim))
+        return torch.cat([p.narrow(dim, 0, hi - lo) for p, (lo, hi) in zip(
+            parts, (self.split(n, r) for r in range(self.size)))], dim)
+
+    def gather_all(self, xs: Sequence[torch.Tensor], dims: Sequence[int],
+                   n: Optional[int] = None) -> List[torch.Tensor]:
+        """Each of ``xs`` gathered along its dim of ``dims`` (equal parts,
+        or the parts of ``split(n)``) in one collective: each moved to
+        lead and flattened beside it, carried in the widest of their
+        dtypes (exact for narrower floats), and returned in a tensor of
+        its own (not a view that keeps the others alive)."""
+        if self.size == 1 or not xs:
+            return list(xs)
+        wide = xs[0].dtype
+        for x in xs[1:]:
+            wide = torch.promote_types(wide, x.dtype)
+        lead = [x.movedim(d, 0) for x, d in zip(xs, dims)]
+        cols = [math.prod(t.shape[1:]) for t in lead]
+        full = self.gather(torch.cat(
+            [t.reshape(t.shape[0], c).to(wide) for t, c in zip(lead, cols)],
+            1), 0, n)
+        return [f.reshape((f.shape[0],) + t.shape[1:]).movedim(0, d)
+                .to(x.dtype, memory_format=torch.contiguous_format,
+                    copy=True)
+                for f, t, x, d in zip(full.split(cols, 1), lead, xs, dims)]
+
+    def sum_all(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each of ``xs`` summed over the axis, in one all-reduce (``sum``:
+        16-bit floats in f32)."""
+        if self.size == 1 or not xs:
+            return list(xs)
+        wide = _WIDE.get(xs[0].dtype, xs[0].dtype)
+        for x in xs[1:]:
+            wide = torch.promote_types(wide, _WIDE.get(x.dtype, x.dtype))
+        flat = self.sum(torch.cat([x.to(wide).flatten() for x in xs]))
+        return [f.view(x.shape).to(x.dtype) for f, x in zip(
+            flat.split([x.numel() for x in xs]), xs)]
 
     def mine(self, x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
         """This rank's ``n`` entries of ``x`` along ``dim``, of a split in
@@ -437,8 +515,9 @@ class ModelAxis(LocalAxis):
     out over it, and a sum, a max and an all-gather over the ranks that
     differ only along it (``group.device_mesh.get_group("model")``), whose
     host seconds add to ``group.comm_s``. 16-bit floats sum in f32 (a sum
-    of partial products is rounded once); a gather carries a tensor in
-    its own dtype. ``kv`` is the k/v cache's split over the axis:
+    of partial products is rounded once), a small one as a gather and a
+    local sum (``SMALL_REDUCE_BYTES``); a gather carries a tensor in its
+    own dtype. ``kv`` is the k/v cache's split over the axis:
     ``"seq"`` (positions), ``"heads"`` (kv heads) or None (whole on every
     rank); ``conv`` whether ``conv_state``'s channels are split."""
 
@@ -456,9 +535,17 @@ class ModelAxis(LocalAxis):
         self.group.comm_s += time.monotonic() - t0
         return out
 
-    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+    def _reduce(self, x: torch.Tensor, op, local) -> torch.Tensor:
+        wide = _WIDE.get(x.dtype, x.dtype)
+        if x.numel() * wide.itemsize <= SMALL_REDUCE_BYTES:
+            parts = self._all_gather(x.to(wide))
+            out = parts[0]
+            for part in parts[1:]:      # in the axis's order, every rank
+                out = local(out, part)
+            return out.to(x.dtype)
+
         def run(x):
-            wire = x.to(_WIDE.get(x.dtype, x.dtype)).contiguous()
+            wire = x.to(wide).contiguous()
             if wire.data_ptr() == x.data_ptr():
                 wire = wire.clone()
             torch.distributed.all_reduce(wire, op=op, group=self._pg)
@@ -467,19 +554,18 @@ class ModelAxis(LocalAxis):
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the model axis, in ``x``'s dtype."""
-        return self._reduce(x, torch.distributed.ReduceOp.SUM)
+        return self._reduce(x, torch.distributed.ReduceOp.SUM, torch.add)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, torch.distributed.ReduceOp.MAX)
+        return self._reduce(x, torch.distributed.ReduceOp.MAX,
+                            torch.maximum)
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The ranks' ``x`` concatenated along ``dim`` in their order on
-        the axis."""
+    def _all_gather(self, x: torch.Tensor) -> List[torch.Tensor]:
         def run(x):
             x = x.contiguous()
             parts = [torch.empty_like(x) for _ in range(self.size)]
             torch.distributed.all_gather(parts, x, group=self._pg)
-            return torch.cat(parts, dim)
+            return parts
         return self._run(run, x)
 
 

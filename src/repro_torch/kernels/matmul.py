@@ -17,12 +17,17 @@ from repro_torch.kernels.launch import (CUDA_CORES, DTYPE_CODES,
                                         TENSOR_CORES, TileKernel, tma_ready)
 
 
-def _pick_block(dim: int, target: int) -> int:
-    """Largest divisor of dim <= target."""
-    b = min(dim, target)
-    while dim % b:
-        b -= 1
-    return b
+# the tensor cores' TMA loads start each column tile on a 16-byte boundary
+# of B's rows: a column tile of bf16 is a multiple of 8 columns (bn = 86,
+# of N = 688, traps the card with an illegal instruction)
+TC_COLUMNS = 8
+
+
+def _pick_block(dim: int, target: int, multiple: int = 1) -> int:
+    """Largest divisor of dim <= target that is a multiple of ``multiple``
+    (the largest divisor at all where there is none)."""
+    fits = [b for b in range(min(dim, target), 0, -1) if dim % b == 0]
+    return next((b for b in fits if b % multiple == 0), fits[0])
 
 
 def matmul_body(pids, a, b, o):
@@ -42,12 +47,14 @@ class MatmulKernel(TileKernel):
 
     def route(self, desc, args):
         """Tensor cores for bf16 A and B that TMA can read (K and N
-        multiples of 8); CUDA cores for f32, whose parity gate (1e-4) TF32
-        would break; any block shape on either."""
+        multiples of 8) in column tiles of a multiple of 8; CUDA cores for
+        f32, whose parity gate (1e-4) TF32 would break, at any block
+        shape."""
         a, b = args
         if a.dtype == b.dtype == torch.float32:
             return CUDA_CORES
-        if a.dtype == b.dtype == torch.bfloat16 and tma_ready(a, b):
+        if (a.dtype == b.dtype == torch.bfloat16 and tma_ready(a, b)
+                and desc.static["bn"] % TC_COLUMNS == 0):
             return TENSOR_CORES
         return None
 
@@ -67,8 +74,9 @@ class MatmulKernel(TileKernel):
             raise ValueError("matmul kernel takes contiguous tensors")
         if self.route(desc, args) is None:
             raise ValueError(f"no matmul route takes bf16 {M}x{K} @ {K}x{N}: "
-                             "the tensor cores need K and N multiples of 8 "
-                             "and 16-byte aligned bases")
+                             f"in column tiles of {desc.static['bn']}: the "
+                             "tensor cores need K, N and the column tile "
+                             "multiples of 8 and 16-byte aligned bases")
 
     def shape_args(self, desc, args, outs):
         a, b = args
@@ -85,7 +93,7 @@ def matmul_desc(M: int, K: int, N: int, dtype=torch.float32, *,
                 ) -> KernelDescriptor:
     bm = _pick_block(M, bm)
     bk = _pick_block(K, bk)
-    bn = _pick_block(N, bn)
+    bn = _pick_block(N, bn, TC_COLUMNS)
     grid = (M // bm, N // bn, K // bk)
     itemsize = dtype.itemsize
     return KernelDescriptor(

@@ -22,7 +22,8 @@ follows the reference's shardings, compute runs on gathered tensors (see
 dtype (``serving_param_shapes``), not as f32 masters; on a mesh of more
 than one process their ``sharded_fn`` computes on the shards,
 tensor-parallel over the model axis (``sharding.ModelAxis``), for the
-dense, vlm and ssm families (``sharded_serving``).
+dense, vlm, ssm and audio families, on any model axis
+(``sharded_serving``).
 """
 from __future__ import annotations
 
@@ -350,7 +351,7 @@ def _logits_sharding(cfg: ModelConfig, mesh: Mesh,
 
 
 # families whose serving steps run tensor-parallel on a mesh of processes
-SHARDED_SERVING_FAMILIES = ("dense", "vlm", "ssm")
+SHARDED_SERVING_FAMILIES = ("dense", "vlm", "ssm", "audio")
 
 
 def _local(t):
@@ -360,7 +361,8 @@ def _local(t):
 def cache_layout(cache_sh) -> Dict[str, Any]:
     """``ModelAxis``'s cache keywords from the cache's shardings: the
     k/v cache split over positions ("seq"), kv heads ("heads") or
-    neither; conv_state's channels split or not."""
+    neither; conv_state's channels split or not. The cross cache needs
+    no keyword: its leaves hold every kv head or this rank's."""
     def on_model(sh, dim):
         return "model" in entry_axes(sh.spec[dim])
     kv = None
@@ -380,19 +382,20 @@ def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
     tensor), returning (logits, cache) as ``DTensor``s by
     ``out_shardings``, the cache's global shapes ``cache_shapes(batch)``.
     Each rank takes the rows of its data shard (the token batch,
-    gathered whole, is small; the cache holds only those rows), runs
-    ``run(params, inputs, cache)`` on its local shards inside its
-    ``ModelAxis`` (tensor-parallel over the model axis; no weight is
-    gathered) and keeps its share of the outputs. The moe, hybrid and
-    audio families raise NotImplementedError."""
+    gathered whole, is small; ``encoder_embeds``, split over the data
+    axes only, is its local shard; the cache holds only those rows),
+    runs ``run(params, inputs, cache)`` on its local shards inside its
+    ``ModelAxis`` (tensor-parallel over the model axis, which need not
+    divide the heads; no weight is gathered) and keeps its share of the
+    outputs. The moe and hybrid families raise NotImplementedError."""
     cfg = model.cfg
     if cfg.family not in SHARDED_SERVING_FAMILIES:
         def refused(*_):
             raise NotImplementedError(
                 f"{cfg.name}: the {cfg.family} family's serving steps do not "
                 "run sharded over a mesh of processes yet (ROADMAP Queue 1: "
-                "the moe family's expert parallelism, the hybrid and audio "
-                "serving steps)")
+                "the moe family's expert parallelism, then the hybrid "
+                "family's serving steps)")
         return refused
     logits_sh, cache_sh = out_sh
     layout = cache_layout(cache_sh)
@@ -411,6 +414,8 @@ def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
         for k, v in g.gather(small, {k: b_sh[k] for k in small}).items():
             v = v.narrow(v.ndim - 2, mine.start, mine.stop - mine.start)
             rows[k] = v if k == "positions" else v.long()
+        if "encoder_embeds" in batch:
+            rows["encoder_embeds"] = _local(batch["encoder_embeds"])
         if "cache_index" in batch:
             ci = _local(batch["cache_index"])
             rows["cache_index"] = ci[mine] if ci.ndim == 1 else ci
@@ -460,7 +465,8 @@ def make_prefill_step(model: TransformerLM, mesh: Mesh,
         donate_argnums=(),
         sharded_fn=(sharded_serving(
             model, mesh, b_sh, out_sh, lambda p, b, _: model.prefill(
-                p, b["tokens"], positions=b.get("positions")),
+                p, b["tokens"], positions=b.get("positions"),
+                encoder_embeds=b.get("encoder_embeds")),
             lambda b: {k: s for k, (s, _) in kv_cache_specs(
                 cfg, *b["tokens"].shape).items()}, group)
             if mesh.size > 1 else None),

@@ -22,10 +22,14 @@ and the MLP's ``wg``, ``wi`` column-parallel on its heads and hidden
 columns, ``wo`` row-parallel (``row_parallel``: the partial products
 summed over the axis in f32, rounded once); a weight split on its embed
 dim (the serving fallback where heads do not divide the axis) multiplies
-the rank's slice of ``x`` and sums. Decode against a cache split over
-positions is split-KV attention (``decode_gqa_attention`` on the axis):
-q gathered, each rank attending over its positions, the parts combined by
-their max and sums. One device runs the same bodies on ``LOCAL``, whose
+the rank's slice of ``x`` and sums, or, for an output projection, gives
+the rank's output columns (``out_product``). Where the axis does not
+divide the heads, a rank computes a range of whole kv groups
+(``head_split``), which a weight whole on every rank gives by slicing,
+with no collective. Decode against a cache split over positions is
+split-KV attention (``decode_gqa_attention`` on the axis): q gathered,
+each rank attending over its positions, the parts combined by their max
+and sums. One device runs the same bodies on ``LOCAL``, whose
 collectives are the identity; where a split would change one device's
 arithmetic (the row-parallel products, decode's softmax) the size-1 axis
 keeps it.
@@ -38,7 +42,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import LOCAL, LocalAxis, model_axis
+from repro_torch.distributed.sharding import (LOCAL, LocalAxis, ceil_split,
+                                              model_axis)
 
 Index = Union[int, torch.Tensor]
 
@@ -251,9 +256,10 @@ def row_parallel(a: torch.Tensor, w: torch.Tensor, ax: LocalAxis,
                  kernel: bool = False) -> torch.Tensor:
     """a (..., K) @ w (K, N), or a (B, S, H, D) times w (H, D, E) over H
     and D, with the contraction split over the model axis (this rank's
-    rows of w): on one device the product in a's dtype; on an axis each
-    rank's partial product in f32, summed over the axis and rounded once
-    to a's dtype. ``kernel``: the matmul kernel (its sums are f32)."""
+    rows of w, none on a rank with no part): on one device the product
+    in a's dtype; on an axis each rank's partial product in f32 (zeros
+    where it holds no rows), summed over the axis and rounded once to
+    a's dtype. ``kernel``: the matmul kernel (its sums are f32)."""
     from repro_torch.kernels import ops as kops
     w = w.to(a.dtype)
     if ax.size == 1:
@@ -262,47 +268,108 @@ def row_parallel(a: torch.Tensor, w: torch.Tensor, ax: LocalAxis,
         return a @ w if w.ndim == 2 else torch.einsum("bshd,hde->bse", a, w)
     if w.ndim == 3:
         a, w = a.flatten(2), w.flatten(0, 1)
-    part = (kops.matmul(a, w, out_dtype=torch.float32) if kernel
-            else wide_product(a, w))
+    if not a.shape[-1]:
+        part = a.new_zeros(a.shape[:-1] + w.shape[-1:], dtype=torch.float32)
+    else:
+        part = (kops.matmul(a, w, out_dtype=torch.float32) if kernel
+                else wide_product(a, w))
     return ax.sum(part).to(a.dtype)
 
 
+def out_product(a: torch.Tensor, w: torch.Tensor, E: int, ax: LocalAxis,
+                kernel: bool = False) -> torch.Tensor:
+    """A block's output projection: a times w (K, E) or (H, D, E). Where
+    w is split on its output embed dim (the serving fallback), a holds
+    every row of w; the rank's E / size columns are computed whole in
+    a's dtype, as one device computes them, and gathered over the axis.
+    Else a holds the rows of w that this rank holds (``row_parallel``)."""
+    if w.shape[-1] == E:
+        return row_parallel(a, w, ax, kernel)
+    from repro_torch.kernels import ops as kops
+    if w.ndim == 3:
+        a, w = a.flatten(2), w.flatten(0, 1)
+    w = w.to(a.dtype)
+    return ax.gather(kops.matmul(a, w) if kernel else a @ w, -1)
+
+
 def column_product(x: torch.Tensor, w: torch.Tensor,
-                   ax: LocalAxis) -> torch.Tensor:
+                   ax: LocalAxis, kernel: bool = False) -> torch.Tensor:
     """x (..., E) times w (E, ...) whole or split on its trailing dims
     (this rank's heads or columns); w split on its embed dim instead (the
     serving fallback, where no trailing dim divides the axis): this
     rank's slice of x times its rows, summed over the axis (every
-    column)."""
+    column). ``kernel``: the matmul kernel, for a 2-d w."""
     if w.shape[0] == x.shape[-1]:
         w = w.to(x.dtype)
+        if kernel:
+            from repro_torch.kernels import ops as kops
+            return kops.matmul(x, w)
         return (x @ w if w.ndim == 2 else
                 torch.einsum("bse,ehd->bshd", x, w))
     return row_parallel(ax.mine(x, -1, w.shape[0]), w.flatten(1),
-                        ax).unflatten(-1, w.shape[1:])
+                        ax, kernel).unflatten(-1, w.shape[1:])
 
 
-def _local_heads(cfg, wo: torch.Tensor, ax: LocalAxis):
-    """This rank's query heads (``wo``'s, split over the axis) and the kv
-    heads they read: (q heads, kv range start, kv range end)."""
-    H, KVH = cfg.num_heads, cfg.num_kv_heads
-    hq = wo.shape[0]
-    if hq * ax.size != H:
-        raise NotImplementedError(
-            f"{cfg.name}: {H} heads do not split over a model axis of "
-            f"{ax.size}; tensor-parallel attention needs them to")
-    G = H // KVH
-    lo = ax.index * hq // G
-    return hq, lo, ((ax.index + 1) * hq - 1) // G + 1
+def column_ranges(x: torch.Tensor, ws, ax: LocalAxis):
+    """x (..., E) times entries ``lo .. hi`` of the second dim (``n``
+    heads or columns) of w, for each ``(w, n, lo, hi)`` of ``ws``,
+    whatever w's storage: whole, sliced before the product (no
+    collective); split on its embed dim, every entry (the partial
+    products summed), then sliced; split on that dim, this rank's part,
+    which must be ``lo .. hi``. The partial products of all the weights
+    split on their embed dim are summed in one all-reduce."""
+    out, summed = [], []
+    for w, n, lo, hi in ws:
+        if w.shape[0] != x.shape[-1]:          # split on its embed dim
+            summed.append(len(out))
+            out.append(wide_product(ax.mine(x, -1, w.shape[0]),
+                                    w.flatten(1)))
+            continue
+        if w.shape[1] == n:                    # whole: slice, then multiply
+            w = w.narrow(1, lo, hi - lo)
+        else:
+            assert w.shape[1] == hi - lo, (tuple(w.shape), lo, hi)
+        out.append(column_product(x, w, ax))
+    for i, y in zip(summed, ax.sum_all([out[i] for i in summed])):
+        w, _, lo, hi = ws[i]
+        out[i] = (y.to(x.dtype).unflatten(-1, w.shape[1:])
+                  .narrow(x.ndim - 1, lo, hi - lo))
+    return out
 
 
-def _kv_heads(t: torch.Tensor, lo: int, hi: int, KVH: int) -> torch.Tensor:
-    """kv heads ``lo .. hi`` of ``t``: ``t`` holds every kv head or, split
-    over the axis, exactly these."""
-    if t.shape[2] == KVH:
-        return t[:, :, lo:hi]
-    assert t.shape[2] == hi - lo, (t.shape, lo, hi)
+def own_rows(t: torch.Tensor, n: int, lo: int, hi: int,
+             dim: int = 0) -> torch.Tensor:
+    """Entries ``lo .. hi`` of ``t`` along ``dim`` (of ``n``): ``t`` holds
+    all ``n`` (sliced here) or, split over the axis, exactly these."""
+    if t.shape[dim] == n:
+        return t.narrow(dim, lo, hi - lo)
+    assert t.shape[dim] == hi - lo, (tuple(t.shape), n, lo, hi)
     return t
+
+
+def head_split(cfg, ax: LocalAxis) -> Tuple[int, int, int, int, int]:
+    """This rank's query heads ``qlo .. qhi`` and the kv heads ``klo ..
+    khi`` they read, and the ``unit`` of heads its range is made of.
+    Where the axis divides the heads, their even split (``wq`` and
+    ``wo`` are stored so; unit 1). Else ``split(KVH)`` of whole kv groups
+    (unit G = H / KVH query heads), as GSPMD pads an uneven dim: every
+    rank's query heads read only its own kv heads, so each flash launch
+    keeps G, and the last ranks may hold no head."""
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    G = H // KVH
+    if H % ax.size == 0:
+        qlo, qhi = ax.split(H)
+        return qlo, qhi, qlo // G, -(-qhi // G), 1
+    klo, khi = ax.split(KVH)
+    return klo * G, khi * G, klo, khi, G
+
+
+def gather_heads(t: torch.Tensor, n: int, unit: int,
+                 ax: LocalAxis) -> torch.Tensor:
+    """``t`` (..., h, D) on this rank's heads (its ``split`` of ``n``
+    runs of ``unit`` heads) as every head, gathered over the axis."""
+    runs = t.reshape(t.shape[:-2] + (t.shape[-2] // unit, unit, t.shape[-1]))
+    return ax.gather(runs, -3, n).flatten(-3, -2)
 
 
 def _all_kv_heads(t: torch.Tensor, ax: LocalAxis, KVH: int) -> torch.Tensor:
@@ -326,20 +393,25 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
       {"kv": (k, v)}                  in full-sequence self-attention, or
       {}                              in cross-attention.
     If `encoder_kv` is given, runs cross-attention (no rope, no causal).
-    Inside a sharded serving step, on this rank's heads, the cache and
-    ``kv`` in the step's layout over the model axis (``ax.kv``).
+    Inside a sharded serving step, on this rank's heads (``head_split``;
+    a rank with none attends to nothing and adds a zero partial), the
+    cache and ``kv`` in the step's layout over the model axis (``ax.kv``),
+    ``encoder_kv`` as the cross cache holds it (every kv head, or this
+    rank's where the axis divides them). ``wo`` whole on every rank is
+    contracted over this rank's heads' rows; split on its output embed
+    dim, it takes every head's output (gathered over the axis).
     """
-    S = x.shape[1]
+    S, E = x.shape[1], x.shape[2]
     dt = x.dtype
     ax = model_axis() or LOCAL
     cross = encoder_kv is not None
-    if cross and ax.size > 1:
-        raise NotImplementedError("cross-attention does not run "
-                                  "tensor-parallel (ROADMAP Queue 1)")
+    H, KVH = cfg.num_heads, cfg.num_kv_heads
+    qlo, qhi, lo, hi, unit = head_split(cfg, ax)
+    count = H // unit
 
-    q = column_product(x, params["wq"], ax)
+    (q,) = column_ranges(x, [(params["wq"], H, qlo, qhi)], ax)
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
+        q = q + own_rows(params["bq"], H, qlo, qhi).to(dt)
 
     if cross:
         k, v = encoder_kv
@@ -367,11 +439,9 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
             q = apply_rope(q, positions, cfg.rope_theta)
             k = apply_rope(k, positions, cfg.rope_theta)
 
-    # this rank's query heads and the kv heads they read (all on one device)
-    KVH = cfg.num_kv_heads
-    hq, lo, hi = _local_heads(cfg, params["wo"], ax)
-    if q.shape[2] != hq:
-        q = ax.mine(q, 2, hq)
+    # a rank with no query heads attends to nothing: q (B, S, 0, D) is
+    # its output, and no attention kernel is launched for it
+    none = qhi == qlo
     extras: dict = {}
     if cache is not None and not cross:
         # decode: write this token's k/v at cache_index, attend to cache
@@ -381,26 +451,31 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
                                    cache_index, ax)
             v_cache = _write_cache(v_cache, _all_kv_heads(v, ax, KVH),
                                    cache_index, ax)
-            out = ax.mine(decode_gqa_attention(
-                ax.gather(q, 2), k_cache, v_cache, cache_index, ax), 2, hq)
+            out = decode_gqa_attention(
+                gather_heads(q, count, unit, ax), k_cache, v_cache,
+                cache_index, ax).narrow(2, qlo, qhi - qlo)
         else:
             heads = ax.kv == "heads"
-            k, v = ((_kv_heads(k, lo, hi, KVH), _kv_heads(v, lo, hi, KVH))
+            k, v = ((own_rows(k, KVH, lo, hi, 2), own_rows(v, KVH, lo, hi, 2))
                     if heads else
                     (_all_kv_heads(k, ax, KVH), _all_kv_heads(v, ax, KVH)))
             k_cache = _write_cache(k_cache, k, cache_index)
             v_cache = _write_cache(v_cache, v, cache_index)
-            out = decode_gqa_attention(
+            out = q if none else decode_gqa_attention(
                 q, k_cache if heads else k_cache[:, :, lo:hi],
                 v_cache if heads else v_cache[:, :, lo:hi], cache_index)
         extras["cache"] = (k_cache, v_cache)
     elif cross:
-        out = (full_gqa_attention(q, k, v, causal=False)
+        km, vm = own_rows(k, KVH, lo, hi, 2), own_rows(v, KVH, lo, hi, 2)
+        out = (q if none else
+               full_gqa_attention(q, km, vm, causal=False)
                if cfg.exact_costs else
-               chunked_gqa_attention(q, k, v, causal=False))
+               chunked_gqa_attention(q, km, vm, causal=False))
     else:
-        km, vm = _kv_heads(k, lo, hi, KVH), _kv_heads(v, lo, hi, KVH)
-        if cfg.exact_costs:
+        km, vm = own_rows(k, KVH, lo, hi, 2), own_rows(v, KVH, lo, hi, 2)
+        if none:
+            out = q
+        elif cfg.exact_costs:
             # the reference's cost probe: scan-free, flop-equivalent
             out = full_gqa_attention(q, km, vm, causal=causal)
         elif cfg.use_pallas:
@@ -417,8 +492,12 @@ def attention_block(params, x: torch.Tensor, cfg, *, positions=None,
                 k, v = ax.mine(k, 1, n), ax.mine(v, 1, n)
         extras["kv"] = (k, v)
 
-    y = row_parallel(out, params["wo"], ax)
-    return y, extras
+    wo = params["wo"]
+    if wo.shape[-1] != E:
+        out = gather_heads(out, count, unit, ax)
+    elif ax.size > 1 and wo.shape[0] == H:
+        wo = wo[qlo:qhi]              # whole: this rank's heads' rows
+    return out_product(out, wo, E, ax), extras
 
 
 def _write_cache(cache: torch.Tensor, kv: torch.Tensor, index: Index,
@@ -459,21 +538,35 @@ def _write_cache(cache: torch.Tensor, kv: torch.Tensor, index: Index,
 # ---------------------------------------------------------------------------
 
 
+def mlp_columns(F: int, size: int, index: int) -> Tuple[int, int]:
+    """Rank ``index``'s range of the ``F`` hidden columns of an MLP whose
+    weights are whole on each of ``size`` ranks: the ``ceil_split`` of F
+    in units of 8 columns (the matmul kernel's tensor cores take K and N
+    multiples of 8), of 1 where 8 does not divide F; the last ranks may
+    hold none."""
+    unit = 8 if F % 8 == 0 else 1
+    lo, hi = ceil_split(F // unit, size, index)
+    return lo * unit, hi * unit
+
+
 def swiglu_mlp(params, x: torch.Tensor, cfg=None) -> torch.Tensor:
     """params: {wi (E,F), wg (E,F), wo (F,E)}. Inside a sharded serving
-    step ``wg`` and ``wi`` are column-parallel (this rank's hidden
-    columns) and ``wo`` row-parallel."""
-    dt = x.dtype
+    step ``wg`` and ``wi`` are column-parallel and ``wo`` row-parallel
+    over this rank's hidden columns: its split of ``mlp`` or, where the
+    axis does not divide F and the weights are whole on every rank, its
+    ``mlp_columns``, sliced here (so no product is summed twice).
+    Split on their embed dim instead (the serving fallback), ``wg`` and
+    ``wi`` give every column (the partial products summed) and ``wo``
+    the rank's output columns (``out_product``)."""
     ax = model_axis() or LOCAL
+    E = x.shape[-1]
     wg, wi, wo = params["wg"], params["wi"], params["wo"]
-    if wg.shape[0] != x.shape[-1] or wo.shape[0] != wg.shape[-1]:
-        raise NotImplementedError(
-            f"the MLP's hidden dim does not split over a model axis of "
-            f"{ax.size} (wg {tuple(wg.shape)}, wo {tuple(wo.shape)})")
+    if ax.size > 1 and tuple(wo.shape) == (cfg.d_ff, E):
+        lo, hi = mlp_columns(cfg.d_ff, ax.size, ax.index)
+        wg, wi, wo = wg[:, lo:hi], wi[:, lo:hi], wo[lo:hi]
+        if lo == hi:                # no columns: a zero partial
+            return row_parallel(x[..., :0], wo, ax)
     kernel = cfg is not None and cfg.use_pallas
-    if kernel:
-        from repro_torch.kernels import ops as kops
-        h = F.silu(kops.matmul(x, wg.to(dt))) * kops.matmul(x, wi.to(dt))
-    else:
-        h = F.silu(x @ wg.to(dt)) * (x @ wi.to(dt))
-    return row_parallel(h, wo, ax, kernel)
+    h = (F.silu(column_product(x, wg, ax, kernel))
+         * column_product(x, wi, ax, kernel))
+    return out_product(h, wo, E, ax, kernel)

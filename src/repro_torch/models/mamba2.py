@@ -16,15 +16,24 @@ The chunked algorithm splits the sequence into chunks of length L:
   chunk state  : sum_s exp(cum_L - cum_s) dt_s x_s (x) B_s
   inter-chunk  : scan over chunk states; y_inter = exp(cum_t) C_t @ H_c
 
-Inside a sharded serving step (``sharding.model_axis()``) the block runs
-on this rank's SSD heads: ``wz``, ``wx``, ``wdt``, ``conv_x`` and the
-per-head vectors hold its heads' channels, B and C are whole on every
-rank (``wB``, ``wC`` split on their embed dim by the serving fallback:
-partial products summed), the gated RMSNorm's sum of squares is summed
-over the axis and ``out_proj`` runs row-parallel. ``conv_state`` is
-stored with its channels (x, B, C) split evenly over the axis, which is
-not the compute's split (the rank's x channels with all of B and C), so
-it is gathered and re-laid on the way in and out.
+Inside a sharded serving step (``sharding.model_axis()``) the SSD runs on
+this rank's heads, ``split(NH)`` (an even split where the axis divides
+NH, else ceil(NH / size) a rank and none on the last ranks), each
+product on the rank's part of a weight's storage, whatever it is: its
+split of channels, its embed dim (the serving fallback, every column:
+partial products summed), or whole (sliced, no collective). B and C are
+whole on every rank. The causal conv runs on conv_x's channels (the
+rank's even split of them, or its heads' where conv_x is whole) and the
+gate, gated RMSNorm and ``out_proj`` on out_proj's rows; where those
+channels are not the heads', the activations are gathered over the axis
+and sliced (every rank then gates and normalizes all the channels); else
+the RMSNorm's sum of squares is summed over the axis. Each step's
+collectives are fused: one all-reduce of the products split on their
+embed dim, one gather after the conv and one after the scan.
+``conv_state`` is stored with its channels (x, B, C) split evenly over
+the axis or whole, and ``ssm_state`` split by heads or whole; each is
+re-laid between its stored layout and the compute's on the way in and
+out.
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import LOCAL, LocalAxis, model_axis
 from repro_torch.kernels.mamba2_scan import chunk_len
 from repro_torch.models.common import P
-from repro_torch.models.layers import column_product, row_parallel
+from repro_torch.models.layers import (column_ranges, out_product,
+                                       own_rows)
 
 
 def mamba2_specs(cfg) -> Dict[str, P]:
@@ -149,20 +159,23 @@ def ssd_decode(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
-def _conv_in(state: torch.Tensor, d_in: int, ax: LocalAxis) -> torch.Tensor:
+def _conv_in(state: torch.Tensor, d_in: int, lo: int, hi: int,
+             ax: LocalAxis) -> torch.Tensor:
     """The stored conv state (B, K-1, CD, or CD / size when split) in the
-    compute's layout: this rank's x channels, then all of B and C."""
+    compute's layout: the conv's x channels ``lo .. hi``, then all of B
+    and C."""
     full = ax.gather(state, -1) if ax.conv else state
-    n = d_in // ax.size
-    return torch.cat([ax.mine(full, -1, n), full[..., d_in:]], dim=-1)
+    return torch.cat([full[..., lo:hi], full[..., d_in:]], dim=-1)
 
 
-def _conv_out(hist: torch.Tensor, n: int, ax: LocalAxis) -> torch.Tensor:
-    """The compute's conv state (the rank's ``n`` x channels, then B and
-    C) in the stored layout: every rank's x channels gathered, then this
-    rank's even share of all channels where they are split."""
-    full = torch.cat([ax.gather(hist[..., :n], -1), hist[..., n:]], dim=-1)
-    return ax.mine(full, -1, full.shape[-1] // ax.size) if ax.conv else full
+def _all_channels(ts, even: bool, hd: int, nh: int, ax: LocalAxis):
+    """Every rank's x channels of each of ``ts`` (its last dim this
+    rank's: an equal share, or its heads', ``hd`` channels each of
+    ``split(nh)``), in one gather over the axis."""
+    if even:
+        return ax.gather_all(ts, [-1] * len(ts))
+    heads = [t.unflatten(-1, (t.shape[-1] // hd, hd)) for t in ts]
+    return [t.flatten(-2) for t in ax.gather_all(heads, [-2] * len(ts), nh)]
 
 
 def mamba2_block(params, x: torch.Tensor, cfg, *,
@@ -178,49 +191,86 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
     d_in = s.expand * cfg.d_model
     hd = s.head_dim
     k = s.conv_kernel
+    NH = s.num_heads(cfg.d_model)
     dt_ = x.dtype
     ax = model_axis() or LOCAL
+    hlo, hhi = ax.split(NH)                    # this rank's SSD heads
+    nh, c = hhi - hlo, (hlo * hd, hhi * hd)    # ... and their channels
+    # the conv's x channels: conv_x's even split, or the heads' if whole
+    m = params["conv_x"].shape[1]
+    a0, a1 = c if m == d_in else (ax.index * m, (ax.index + 1) * m)
+    # the gate's, the norm's and out_proj's channels: out_proj's rows
+    wout = params["out_proj"]
+    if wout.shape[1] != E:                     # split on its output
+        o0, o1 = 0, d_in
+    elif wout.shape[0] == d_in:                # whole: the heads' rows
+        (o0, o1), wout = c, wout[c[0]:c[1]]
+    else:
+        o0, o1 = ax.index * wout.shape[0], (ax.index + 1) * wout.shape[0]
 
-    z = column_product(x, params["wz"], ax)                # (B,S,d_in)
-    xin = column_product(x, params["wx"], ax)
-    Bp = column_product(x, params["wB"], ax)               # (B,S,DS)
-    Cp = column_product(x, params["wC"], ax)
-    dt = column_product(x, params["wdt"], ax)              # (B,S,NH)
-    n_x, nh = xin.shape[-1], dt.shape[-1]      # this rank's on the axis
-    if nh * hd != n_x:
-        raise NotImplementedError(
-            f"{cfg.name}: the SSD heads do not split over the model axis")
+    # the products; those of weights split on their embed dim summed in
+    # one all-reduce
+    z, xin, Bp, Cp, dt = column_ranges(x, [
+        (params["wz"], d_in, o0, o1), (params["wx"], d_in, a0, a1),
+        (params["wB"], s.d_state, 0, s.d_state),
+        (params["wC"], s.d_state, 0, s.d_state),
+        (params["wdt"], NH, hlo, hhi)], ax)
 
-    xBC = torch.cat([xin, Bp, Cp], dim=-1)                 # (B,S,CD)
+    xBC = torch.cat([xin, Bp, Cp], dim=-1)                 # (B,S,CD')
     conv_w = torch.cat(
-        [params["conv_x"], params["conv_B"], params["conv_C"]],
-        dim=-1).to(dt_)                                    # (K, CD)
+        [own_rows(params["conv_x"], d_in, a0, a1, 1), params["conv_B"],
+         params["conv_C"]], dim=-1).to(dt_)                # (K, CD')
 
     conv_state = state[0] if state is not None else None
     if conv_state is not None and ax.size > 1:
-        conv_state = _conv_in(conv_state, d_in, ax)
+        conv_state = _conv_in(conv_state, d_in, a0, a1, ax)
     xBC_conv = F.silu(_causal_conv(xBC, conv_w, conv_state))
+    n_x = a1 - a0
+    xs = xBC_conv[..., :n_x]
+    Bs = xBC_conv[..., n_x:n_x + s.d_state]
+    Cs = xBC_conv[..., n_x + s.d_state:]
     new_conv_state = None
     if want_state or state is not None:
         hist = torch.cat(
             [conv_state if conv_state is not None
              else xBC.new_zeros((B, k - 1, xBC.shape[-1])), xBC], dim=1)
         new_conv_state = hist[:, -(k - 1):, :]
-        if ax.size > 1:
-            new_conv_state = _conv_out(new_conv_state, n_x, ax)
+    # every rank's x channels, in one gather: the new conv state's (its
+    # stored layout); where the conv's channels are not the heads', the
+    # conv's output (to the heads' channels); and where y will be
+    # gathered whole (the gate's channels are not the heads') and z is
+    # split evenly, z, so that every rank gates and normalizes all the
+    # channels, as one process does, with no sum for the norm
+    even, relay_x, relay_y = m != d_in, (a0, a1) != c, (o0, o1) != c
+    gate_all = even and relay_y
+    if ax.size > 1 and (relay_x or gate_all or new_conv_state is not None):
+        parts = ([new_conv_state[..., :n_x]] if new_conv_state is not None
+                 else []) + ([xs] if relay_x else []) + ([z] if gate_all
+                                                        else [])
+        full = _all_channels(parts, even, hd, NH, ax)
+        if gate_all:
+            z = full.pop()
+        if relay_x:
+            xs = full.pop()[..., c[0]:c[1]]
+        if new_conv_state is not None:
+            cs = torch.cat([full[0], new_conv_state[..., n_x:]], dim=-1)
+            new_conv_state = (ax.mine(cs, -1, cs.shape[-1] // ax.size)
+                              if ax.conv else cs)
 
-    xs = xBC_conv[..., :n_x]
-    Bs = xBC_conv[..., n_x:n_x + s.d_state]
-    Cs = xBC_conv[..., n_x + s.d_state:]
-
-    A = -torch.exp(params["A_log"].float())                # (NH,)
-    dt = F.softplus(dt.float() + params["dt_bias"].float())
+    A = -torch.exp(own_rows(params["A_log"], NH, hlo, hhi).float())
+    dt = F.softplus(dt.float() + own_rows(params["dt_bias"], NH, hlo,
+                                          hhi).float())
 
     xh = xs.reshape(B, S, nh, hd)
     ssm_state = state[1] if state is not None else None
-    Dp = params["D"].float()
+    if ssm_state is not None:
+        ssm_state = own_rows(ssm_state, NH, hlo, hhi, 1)
+    Dp = own_rows(params["D"], NH, hlo, hhi).float()
 
-    if S == 1 and ssm_state is not None:                   # decode fast path
+    if not nh:                 # no heads here: nothing to scan
+        y = xh.float()
+        h = xh.new_zeros((B, 0, hd, s.d_state), dtype=torch.float32)
+    elif S == 1 and ssm_state is not None:                 # decode fast path
         y, h = ssd_decode(xh[:, 0], dt[:, 0], A, Bs[:, 0], Cs[:, 0], Dp,
                           ssm_state)
         y = y[:, None]                                     # (B,1,NH,HD)
@@ -231,16 +281,35 @@ def mamba2_block(params, x: torch.Tensor, cfg, *,
         y, h = ssd_chunked(xh, dt, A, Bs, Cs, Dp, chunk=s.chunk_size,
                            h0=ssm_state)
 
-    y = y.reshape(B, S, n_x).to(dt_)
+    y = y.to(dt_)
+    # every rank's heads, in one gather: the new ssm state's where it is
+    # stored whole, and y's where the gate's channels are not the heads'
+    whole_h = (ax.size > 1 and NH % ax.size != 0
+               and (want_state or state is not None))
+    parts = [(t, d) for t, d, on in ((y, 2, relay_y), (h, 1, whole_h))
+             if on]
+    full = ax.gather_all([t for t, _ in parts], [d for _, d in parts], NH)
+    if whole_h:
+        h = full.pop()
+    if relay_y:
+        y = full.pop().flatten(-2)
+        y = y if gate_all else y[..., o0:o1]
+    else:
+        y = y.flatten(-2)
     # gated RMSNorm (mamba2: norm(y * silu(z))), its mean over all d_in
     y = y * F.silu(z)
     yf = y.float()
-    var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
-    if ax.size > 1:    # the ranks' equal shares of d_in: the mean of means
-        var = ax.sum(var) / ax.size
+    if y.shape[-1] == d_in:    # every channel here
+        var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
+        yf = yf[..., o0:o1]
+    elif even:                 # equal shares: the mean of means
+        var = ax.sum(torch.mean(torch.square(yf), dim=-1,
+                                keepdim=True)) / ax.size
+    else:
+        var = ax.sum(torch.square(yf).sum(dim=-1, keepdim=True)) / d_in
     y = (yf * torch.rsqrt(var + cfg.rms_eps)
-         * params["norm"].float()).to(dt_)
-    out = row_parallel(y, params["out_proj"], ax)
+         * own_rows(params["norm"], d_in, o0, o1).float()).to(dt_)
+    out = out_product(y, wout, E, ax)
 
     new_state = None
     if want_state or state is not None:

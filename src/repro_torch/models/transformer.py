@@ -231,7 +231,10 @@ class TransformerLM:
         """The mixer half of the layer at period position ``p``: RMSNorm,
         attention or mamba2, residual, and for the audio family the
         cross-attention to the encoder (its K/V projected from ``enc_out``,
-        or ``cross`` = (cross_k, cross_v) from the cache in decode).
+        or ``cross`` = (cross_k, cross_v) from the cache in decode; inside
+        a sharded step ``wk`` and ``wv`` column-parallel, which gives the
+        cross cache's layout: this rank's kv heads where the axis divides
+        them, else every kv head).
         ``cache`` is the layer's own entry in decode, (k, v) or
         (conv_state, ssm_state). Returns (x, mixer output, the layer's new
         cache entries or None)."""
@@ -248,12 +251,10 @@ class TransformerLM:
             x = x + h
             if cfg.encoder_layers:
                 hx = rms_norm(x, lp["ln_x"], cfg.rms_eps)
-                if cross is None:
-                    dt = x.dtype
-                    cross = tuple(
-                        torch.einsum("bfe,ehd->bfhd", enc_out,
-                                     lp["xattn"][w].to(dt))
-                        for w in ("wk", "wv"))
+                if cross is None:     # in the cross cache's layout
+                    ax = model_axis() or LOCAL
+                    cross = tuple(column_product(enc_out, lp["xattn"][w], ax)
+                                  for w in ("wk", "wv"))
                     if collect_cache:
                         new.update(zip(("cross_k", "cross_v"), cross))
                 hx, _ = attention_block(lp["xattn"], hx, cfg,

@@ -13,7 +13,8 @@ prompts, the cache resharded and padded to the decode capacity
 (``decode_cache``), then one decode step per entry of ``indices``. Rank
 0 writes the gathered logits and every cache leaf of each step to
 OUT_PREFIX.<case>.npz; every rank writes its bytes (``cache_index`` as
-the bundle's abstract scalar where the model reads it) and whether each
+the bundle's abstract scalar where the model reads it; in decode, no
+encoder weights, which it never reads) and whether each
 weight is held as its shard to OUT_PREFIX.<rank>.json.
 """
 import dataclasses
@@ -37,20 +38,33 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def case_config(case):
+    """The case's reduced config, with its ``overrides`` (widths that the
+    model axis does or does not divide) and dtype."""
     return dataclasses.replace(get_config(case["arch"]).reduced(),
+                               **case.get("overrides", {}),
                                dtype=DTYPES[case["dtype"]],
                                use_pallas=case.get("use_pallas", False))
+
+
+def as_batch(cfg, d):
+    """A batch of ``inputs`` as tensors, its floats in the model dtype."""
+    return {k: torch.as_tensor(v).to(cfg.dtype) if v.dtype.kind == "f"
+            else torch.as_tensor(v) for k, v in d.items()}
 
 
 def inputs(cfg, case):
     """The prefill's batch and each decode step's (numpy, as
     ``input_specs`` lays them out; the decode steps' cache apart):
-    seeded tokens, M-RoPE positions for the vlm family, and each step's
-    ``cache_index`` (a scalar or per-slot lengths)."""
+    seeded tokens, M-RoPE positions for the vlm family, frame embeddings
+    (f32) for the audio family, and each step's ``cache_index`` (a scalar
+    or per-slot lengths)."""
     rng = np.random.default_rng(7)
     B, S = case["batch"], case["prompt"]
     pre = {"tokens": rng.integers(0, cfg.vocab_size,
                                   size=(B, S)).astype(np.int32)}
+    if cfg.encoder_layers:
+        pre["encoder_embeds"] = rng.standard_normal(
+            (B, cfg.num_audio_frames, cfg.d_model)).astype(np.float32)
     if cfg.mrope_sections is not None:
         base = np.arange(S, dtype=np.int32)
         pre["positions"] = np.stack([base, base // 2, base % 3])[:, None] \
@@ -97,8 +111,7 @@ def run_case(case, mesh, group, out_prefix):
         tuple(t.to_local().shape) == s.shard_shape(t.shape)
         for t, s in zip(tree_leaves(params), tree_leaves(p_sh)))
     pb, steps = inputs(cfg, case)
-    batch = group.layout({k: torch.as_tensor(v) for k, v in pb.items()},
-                         pre.in_shardings[1])
+    batch = group.layout(as_batch(cfg, pb), pre.in_shardings[1])
     out = {"argument_bytes": {"prefill": _bytes((params, batch))},
            "shards_ok": shards_ok}
     logits, cache = pre.sharded_fn(params, batch)
@@ -112,10 +125,12 @@ def run_case(case, mesh, group, out_prefix):
         db = group.layout({k: torch.as_tensor(v) for k, v in d.items()},
                           {k: d_sh[k] for k in d})
         db.update(cache=cache, cache_index=ci)
-        if i == 0:     # cache_index as the bundle's scalar, if read
+        if i == 0:     # cache_index as the bundle's scalar, if read;
+            # the encoder's weights, which decode never reads, not at all
             out["argument_bytes"]["decode"] = _bytes(
-                (params, {k: v for k, v in db.items()
-                          if k != "cache_index"})) + 4 * ("k" in cache)
+                ({k: v for k, v in params.items() if k != "encoder"},
+                 {k: v for k, v in db.items() if k != "cache_index"})
+            ) + 4 * ("k" in cache)
         logits, cache = dec.sharded_fn(params, db)
         whole[f"decode{i}/logits"] = group.gather(logits,
                                                   dec.out_shardings[0])

@@ -1,12 +1,16 @@
 """Phase 13 of ``chip_smoke.py`` rehearsed on the CPU at reduced width: the
 serving steps' ``sharded_fn`` on reduced qwen2.5-14b (1, 2) and
 mamba2-130m (1, 2) and (2, 1), two ranks of one gloo group each
-(``chip_smoke.py --sharded-serving JOB``), against one process running
-the same steps here. Every gate of every rank passes (each layer from one
-input, the first layers against the kernels' plain versions on the same
-shards, the cache, the bytes against the dry run's, the launch shapes),
-and the launch guard fires at the end because the kernels' plain versions
-launch nothing on the CPU.
+(``chip_smoke.py --sharded-serving-rank JOB``); and on model axes that do not
+divide the heads: reduced qwen2.5-14b and whisper-base on (1, 3) (2 kv
+groups over 3 ranks: the last has none) and mamba2-130m with d_model 48
+on (1, 4) (6 SSD heads, 2 a rank, none on the last; 96 x channels split
+24 a rank), as the card's (1, 3) and (1, 16) runs lay them out; all
+against one process running the same steps here. Every gate of every
+rank passes (each layer from one input, the first layers against the
+kernels' plain versions on the same shards, the cache, the bytes against
+the dry run's, the launch shapes), and the launch guard fires at the end
+because the kernels' plain versions launch nothing on the CPU.
 """
 import re
 import sys
@@ -20,11 +24,17 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 
 
+TRAFFIC = (4, 16, 32, 2)
+
+
 def test_sharded_serving_phase_on_cpu_at_reduced_width(capsys):
+    # qwen2.5-14b cut to its first layer, drawn as the whole model draws
+    # it, as the card's run is cut
+    runs = ((cs.ShardedRun("qwen2.5-14b", ((1, 2),), TRAFFIC, layers=1),
+             cs.ShardedRun("mamba2-130m", ((1, 2), (2, 1)), TRAFFIC)),)
     with pytest.raises(AssertionError, match="miss a kernel of the path"
                        ) as e:
-        cs.sharded_serving_phase(torch.device("cpu"), reduced=True, batch=4,
-                                 prompt=16, capacity=32, steps=2,
+        cs.sharded_serving_phase(torch.device("cpu"), runs, reduced=True,
                                  timeout_s=240)
     # every path's kernels: none launched off the card
     for what in ("qwen2.5-14b (1, 2) matmul_plain", "qwen2.5-14b (1, 2) "
@@ -51,6 +61,74 @@ def test_sharded_serving_phase_on_cpu_at_reduced_width(capsys):
     assert "qwen2.5-14b (1, 2) rank 1 {'data': 0, 'model': 1}" in out
     assert "mamba2-130m (2, 1) rank 1 {'data': 1, 'model': 0}" in out
     assert "phase 13 in" in out
+
+
+def test_sharded_serving_phase_on_uneven_axes_at_reduced_width(capsys):
+    # one wave of three meshes, as the card runs its waves
+    runs = ((cs.ShardedRun("qwen2.5-14b", ((1, 3),), TRAFFIC),
+             cs.ShardedRun("whisper-base", ((1, 3),), (2, 16, 30, 2)),
+             cs.ShardedRun("mamba2-130m", ((1, 4),), TRAFFIC,
+                           widths=(("d_model", 48),))),)
+    with pytest.raises(AssertionError, match="miss a kernel of the path"
+                       ) as e:
+        cs.sharded_serving_phase(torch.device("cpu"), runs, reduced=True,
+                                 timeout_s=240)
+    for what in ("qwen2.5-14b (1, 3) matmul_plain", "qwen2.5-14b (1, 3) "
+                 "flash_plain", "whisper-base (1, 3) flash_plain",
+                 "mamba2-130m (1, 4) ssd_plain"):
+        assert what in str(e.value)
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if " rank " in ln]
+    assert len(lines) == 3 + 3 + 4
+    for ln in lines:
+        assert ln.endswith(" ok"), ln
+        assert "the rest passed through True" in ln
+        assert "against their plain versions on the shards, 2 layers" in ln
+        assert "launches at shard shapes True" in ln
+        bytes_, priced = re.search(r"bytes (\{.*?\}), dry run (\{.*?\})",
+                                   ln).groups()
+        assert bytes_ == priced, ln
+    # whisper's encoder layers are held too, through the kernels' path
+    # against their plain versions as well
+    for ln in lines:
+        if "whisper-base" in ln:
+            assert re.search(r"encoder \d\.\d\de[-+]\d\d, prefill", ln), ln
+            assert "encoder " in ln.split("2 layers:")[1], ln
+    assert "qwen2.5-14b (1, 3) rank 2 {'data': 0, 'model': 2}" in out
+    assert "mamba2-130m (1, 4) rank 3 {'data': 0, 'model': 3}" in out
+    assert out.count("wave 0 (") == 1
+
+
+def test_launch_shapes_gate_on_axes_that_do_not_divide_the_heads():
+    """qwen2.5-14b on (1, 3): flash on 15, 15 and 10 heads (G = 5), the
+    MLP's matmuls at 4608 columns; whisper-base on (1, 3): 3, 3 and 2
+    heads, its whole MLP sliced to 688, 688 and 672 columns (units of 8);
+    mamba2-130m on (1, 16): the SSD on 2 heads on ranks 0-11, none on
+    12-15, which must not launch and the others must."""
+    cfg = get_config("qwen2.5-14b")
+    E = cfg.d_model
+    for rank, hq in ((0, 15), (2, 10)):
+        good = {"matmul": {(2048, E, 4608), (2048, 4608, E)},
+                "flash": {(4 * hq, 512, 512, 128, 5)}, "ssd": set()}
+        assert cs.launch_shapes_gate(cfg, good, 4, 3, rank)
+        assert not cs.launch_shapes_gate(cfg, good, 4, 3, 2 - rank)
+        assert not cs.launch_shapes_gate(
+            cfg, {**good, "flash": {(4 * 40, 512, 512, 128, 5)}}, 4, 3, rank)
+    w = get_config("whisper-base")
+    for rank, hq, f in ((0, 3, 688), (2, 2, 672)):
+        good = {"matmul": {(3000, 512, f), (3000, f, 512)},
+                "flash": {(2 * hq, 1500, 1500, 64, 1),
+                          (2 * hq, 16, 16, 64, 1)}, "ssd": set()}
+        assert cs.launch_shapes_gate(w, good, 2, 3, rank)
+        assert not cs.launch_shapes_gate(
+            w, {**good, "matmul": {(3000, 512, 2048)}}, 2, 3, rank)
+    m = get_config("mamba2-130m")
+    ssd = {"matmul": set(), "flash": set(), "ssd": {(4, 512, 2, 64, 128)}}
+    none = {**ssd, "ssd": set()}
+    assert cs.launch_shapes_gate(m, ssd, 4, 16, 11)
+    assert cs.launch_shapes_gate(m, none, 4, 16, 12)
+    assert not cs.launch_shapes_gate(m, ssd, 4, 16, 12)
+    assert not cs.launch_shapes_gate(m, none, 4, 16, 0)
 
 
 def test_launch_shapes_gate_catches_a_whole_width_launch():

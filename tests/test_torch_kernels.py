@@ -304,6 +304,27 @@ def test_route_takes_cuda_cores_for_f32(label):
     desc.kernel.check(desc, args, new_outputs(desc, torch.device("cpu")))
 
 
+@pytest.mark.parametrize("N,bn", [(688, 16), (864, 96), (1184, 32),
+                                  (13824, 128)])
+def test_matmul_column_tiles_are_multiples_of_8(N, bn):
+    """bf16 column tiles that TMA loads from 16-byte boundaries: the
+    largest divisor of N up to 128 that is a multiple of 8 (86, 108 and
+    74, the largest divisors of the first three, trap the card), on the
+    tensor cores; a tile of 4 columns is refused before any launch."""
+    from repro_torch.kernels.launch import TENSOR_CORES
+    from repro_torch.kernels.matmul import MATMUL, matmul_desc
+    bf = torch.bfloat16
+    d = matmul_desc(256, 512, N, bf)
+    assert d.static["bn"] == bn and d.grid[1] == N // bn
+    assert MATMUL.route(d, _inputs(d, bf)) == TENSOR_CORES
+    d = matmul_desc(256, 512, N, bf, bn=4)
+    assert d.static["bn"] == 4
+    args = _inputs(d, bf)
+    assert MATMUL.route(d, args) is None
+    with pytest.raises(ValueError, match="no matmul route"):
+        MATMUL.check(d, args, new_outputs(d, torch.device("cpu")))
+
+
 def test_check_raises_on_a_launch_no_route_takes():
     """bf16 that TMA cannot read (K or N not a multiple of 8, a base off
     the 16-byte grid), bf16 flash with D outside (64, 128), f32 flash with
