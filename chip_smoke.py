@@ -51,7 +51,7 @@ Phases, each raising on failure:
      quanta between the waves; the HP tokens must be equal; (e) the
      serving driver with ``colocate_train=True``;
   8. the MoE and audio model paths: (a) qwen3-moe-30b-a3b at full width
-     cut to 24 of its 48 layers (15.6 B f32 parameters) on its use_pallas
+     cut to 8 of its 48 layers (5.6 B f32 parameters) on its use_pallas
      path behind the ServingEngine, phase 5's 6 requests; every prefill of
      every layer runs flash attention (G = 8, D = 128), the MoE block runs
      torch ops as the reference's runs einsums; each prompt's prefill held
@@ -110,29 +110,32 @@ Phases, each raising on failure:
      dry run's for the mesh, every shard on the card. No kernel runs: the
      train step runs torch ops (``use_pallas`` training is refused);
  13. the serving steps sharded over a mesh of processes, tensor-parallel
-     on the model axis (``make_prefill_step`` / ``make_decode_step``'s
+     on the model axis and the MoE blocks expert-parallel over the data
+     axes (``make_prefill_step`` / ``make_decode_step``'s
      ``sharded_fn``), the ranks of one gloo group all on ``cuda:0``
      (each ``chip_smoke.py --sharded-serving-rank JOB``), each drawing
-     only its shards:
-     qwen2.5-14b in bf16 cut to its first 8 layers (the whole model's
-     draw) on (1, 2) and whole on (1, 3) (its attention weights whole on
-     every rank, 3, 3 and 2 kv groups of 5 heads), mamba2-130m cut to
-     its first 8 layers likewise on (1, 2) and (2, 1) and whole on the
-     production model axis (1, 16) (2 SSD heads on ranks 0-11, none on
-     12-15), on phase 9's traffic (4 decode steps on (1, 16));
-     whisper-base whole on (1, 3) (encoder, decoder and cross-attention
-     on 3, 3 and 2 heads, its MLP, embedding and head whole) on phase 8
-     (b)'s. Against one process
-     running the same steps on the same weights here first: each layer
-     from one input (the encoder's, prefill and decode outputs, the cache
-     at the rank's positions, the cross K/V, the decode token's row)
-     within PLAIN_TOL, the rest of the cache passed through; the first
-     PLAIN_LAYERS layers through the kernels within PLAIN_TOL of their
-     plain versions on the same shards (the MLP's matmuls with the f32
-     partial, flash and the SSD at shard shapes); argument bytes equal to
-     the dry run's, peak memory below the step's arguments (shards,
-     batch, cache) plus one whole leaf plus the step's temporaries, every
-     kernel launched at the rank's shard
+     only its shards, cut to their first layers as the whole model draws
+     them: qwen2.5-14b in bf16 cut to 2 layers on (1, 2) and to 24 on
+     (1, 3) (its attention weights whole on every rank, 3, 3 and 2 kv
+     groups of 5 heads), mamba2-130m cut to 8 layers on (1, 2), (2, 1)
+     and the production model axis (1, 16) (2 SSD heads on ranks 0-11,
+     none on 12-15; 4 decode steps), qwen3-moe-30b-a3b cut to 8 layers
+     on (2, 1) and (2, 2), jamba-1.5-large-398b's first period (experts'
+     d_ff 6144) on (2, 2), on phase 9's traffic; whisper-base whole on
+     (1, 3) (encoder, decoder and cross-attention on 3, 3 and 2 heads,
+     its MLP, embedding and head whole) on phase 8 (b)'s. Against one
+     process running the same steps on the same weights here first:
+     each layer from one input (the encoder's, prefill and decode
+     outputs, the cache at the rank's positions, the cross K/V, the
+     decode token's row; a MoE layer's mixer half, and its block fed one
+     process's FFN input with the same top-k sets) within PLAIN_TOL, the
+     rest of the cache passed through; the first PLAIN_LAYERS layers (and
+     jamba's first attention layer) through the kernels within PLAIN_TOL
+     of their plain versions on the same shards (the MLP's matmuls with
+     the f32 partial, flash and the SSD at shard shapes); argument bytes
+     and all-to-all bytes equal to the dry run's, peak memory below the
+     step's arguments (shards, batch, cache) plus one whole leaf plus the
+     step's temporaries, every kernel launched at the rank's shard
      shapes (a rank with no heads launching no flash or SSD kernel), every
      kernel family of the path on some rank.
 ``python3 chip_smoke.py --gloo-probe`` lists which collectives gloo
@@ -199,11 +202,12 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, LOSS_DROP = 20, 8, 512, 0.1
 RESTART_TOL = dict(rtol=2e-4, atol=2e-5)
 IDLE_QUANTA = 5
 # phase 8 (a): qwen3-moe-30b-a3b at full width, cut to MOE_LAYERS of its 48
-# layers (15.58 B f32 parameters, 58.0 GiB; all 48 layers hold 113.7 GiB);
+# layers (5.61 B f32 parameters, 20.9 GiB; cut from 24 layers, 58.0 GiB,
+# to pay for phase 13's expert-parallel runs; all 48 hold 113.7 GiB);
 # gate (b), relative L2 error of each layer's bf16 attention sub-block on
 # the kernel path against the torch-ops path from the same input: the CPU
 # rehearsal (``rehearse_phase8``) gives 1.7e-2 to 2.1e-2, so 5e-2
-MOE_LAYERS = 24
+MOE_LAYERS = 8
 MOE_ATTN_TOL = 5e-2
 # phase 8 (b): whisper-base whole, B = 2 sequences of 1500 frames, a
 # 16-token prompt and 8 greedy decode steps; relative L2 error of each row
@@ -248,10 +252,12 @@ OBS_TIMEOUT_FLOOR = 6.0
 # first steps on an H100), which magnifies any change in the sums' order
 SHARDED_STEPS, SHARDED_LOSS_TOL, SHARDED_LR = 5, 1e-2, 3e-4
 # phase 13: the serving steps sharded over a mesh of ranks of one gloo
-# group on the one card, tensor-parallel on the model axis, each run an
-# arch on its meshes and traffic (batch, prompt, capacity, decode steps),
-# cut to its first ``layers`` layers where given, drawn as the whole model
-# draws them (``widths`` replace a config's for the reduced rehearsals):
+# group on the one card, tensor-parallel on the model axis and the MoE
+# blocks expert-parallel over the data axes, each run an arch on its
+# meshes and traffic (batch, prompt, capacity, decode steps), cut to its
+# first ``layers`` layers where given, drawn as the whole model draws them
+# (``widths`` replace a config's, for the reduced rehearsals and jamba's
+# cut):
 # phase 9's (STEPS_BATCH prompts of STEPS_PROMPT tokens, decode against a
 # cache of STEPS_CAPACITY, so that on (1, 2) the decode writes land in
 # rank 1's half, just past the boundary) and phase 8 (b)'s for
@@ -260,8 +266,10 @@ SHARDED_STEPS, SHARDED_LOSS_TOL, SHARDED_LR = 5, 1e-2, 3e-4
 # first PLAIN_LAYERS within PLAIN_TOL of the plain versions. (1, 3)
 # divides none of qwen2.5-14b's 40 heads, 8 kv heads and 5120, nor
 # whisper-base's 8 heads, 2048 and 512; (1, 16), the production model
-# axis, not mamba2-130m's 24 SSD heads. A run's weights are drawn from
-# ``seed``.
+# axis, not mamba2-130m's 24 SSD heads; (2, 1) splits qwen3-moe-30b-a3b's
+# 128 experts over data alone, (2, 2) its experts over data and each
+# expert's columns and the heads over model. A run's weights are drawn
+# from ``seed``.
 SEED = 0
 
 
@@ -275,18 +283,32 @@ class ShardedRun(NamedTuple):
 
 
 STEPS_TRAFFIC = (STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, STEPS_NEW)
-# waves of runs: a wave's meshes run their ranks at once (the first's 12
-# ranks hold ~64 GiB of the card), each mesh's start-up (processes, CUDA,
-# the shards' draw) beside the others'; the 16 ranks of (1, 16) alone
-# (gloo's latency grows with the ranks on the host's cores)
+# jamba-1.5-large-398b cut to one period of its 8-layer interleave (the
+# stack takes whole periods), its experts' hidden width from 24576 to
+# 6144: one period at its published widths holds 84.07 GiB in bf16 on
+# one process and 96.15 GiB over (2, 2)'s ranks, the cut one 30.07 and
+# 42.15 GiB; every other width stays published
+JAMBA_PERIOD = (("num_layers", 8), ("moe.d_ff", 6144))
+# waves of runs: a wave's meshes run their ranks at once, each mesh's
+# start-up (processes, CUDA, the shards' draw) beside the others'. The
+# first's 12 ranks hold ~60 GiB of the card; the 16 ranks of (1, 16)
+# share their wave with jamba's 4 (~51 GiB): gloo's latency grows with the
+# ranks on the host's cores (the 16 ranks' decode 1.8 tokens/s alone, 1.1
+# beside jamba), but the wave took 120.0 s against 104.8 s for the 16
+# ranks alone and some 40 s for jamba's (NVIDIA H100 80GB HBM3, 700 W);
+# qwen3-moe's 6 ranks (~30 GiB) last, as they fit beside neither
 SHARDED_SERVING = (
-    (ShardedRun("qwen2.5-14b", ((1, 2),), STEPS_TRAFFIC, layers=8),
+    (ShardedRun("qwen2.5-14b", ((1, 2),), STEPS_TRAFFIC, layers=2),
      ShardedRun("mamba2-130m", ((1, 2), (2, 1)), STEPS_TRAFFIC, layers=8),
-     ShardedRun("qwen2.5-14b", ((1, 3),), STEPS_TRAFFIC),
+     ShardedRun("qwen2.5-14b", ((1, 3),), STEPS_TRAFFIC, layers=24),
      ShardedRun("whisper-base", ((1, 3),),
                 (WHISPER_BATCH, WHISPER_PROMPT, 48, WHISPER_STEPS))),
     (ShardedRun("mamba2-130m", ((1, 16),),
-                (STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, 4)),))
+                (STEPS_BATCH, STEPS_PROMPT, STEPS_CAPACITY, 4), layers=8),
+     ShardedRun("jamba-1.5-large-398b", ((2, 2),), STEPS_TRAFFIC,
+                widths=JAMBA_PERIOD)),
+    (ShardedRun("qwen3-moe-30b-a3b", ((2, 1), (2, 2)), STEPS_TRAFFIC,
+                layers=8),))
 # phase 11: the dry run's cells, one shape per family on both production
 # meshes (the whole sweep, some 3 min on a CPU, is the CLI's: ``python -m
 # repro_torch.launch.dryrun --all --mesh both``), and a deepseek-coder-33b
@@ -3154,21 +3176,30 @@ def launch_shapes_gate(cfg, shapes, rows: int, model_size: int,
     without), the SSD scan on its SSD heads likewise, the MLP's matmuls
     at N or K = its hidden columns (its even split of d_ff or, where the
     weights are whole, its ``mlp_columns``) or, where they are split on
-    their embed dim, at d_ff and d_model / model_size. A rank with heads
-    or columns must launch their kernels."""
+    their embed dim, at d_ff and d_model / model_size; the moe family's
+    blocks launch no matmul (torch ops, as the reference's einsums), the
+    hybrid family's layers each of the three. A rank with heads or
+    columns must launch their kernels."""
     from repro_torch.models.layers import mlp_columns
     def part(n):
         per = -(-n // model_size)
         return max(0, min(per, n - index * per))
+    ssd = not shapes["ssd"]
+    if cfg.family in ("ssm", "hybrid"):
+        # a head wider than the kernel's 64 columns launches as several
+        # (``kernels.ops.mamba2_scan``): the rank's channels count
+        nh, hd = part(cfg.ssm.num_heads(cfg.d_model)), cfg.ssm.head_dim
+        ssd = (bool(shapes["ssd"]) == bool(nh)
+               and all(b == rows and h * d == nh * hd
+                       for b, _, h, d, _ in shapes["ssd"]))
     if cfg.family == "ssm":
-        nh = part(cfg.ssm.num_heads(cfg.d_model))
-        return (bool(shapes["ssd"]) == bool(nh) and not shapes["matmul"]
-                and all(b == rows and h == nh
-                        for b, _, h, _, _ in shapes["ssd"]))
+        return ssd and not shapes["matmul"]
     H, KVH, E, F = cfg.num_heads, cfg.num_kv_heads, cfg.d_model, cfg.d_ff
     G = H // KVH
     hq = part(H) if H % model_size == 0 else part(KVH) * G
-    if F % model_size and E % model_size == 0:      # the embed fallback
+    if cfg.family == "moe":
+        f, mlp = 0, True
+    elif F % model_size and E % model_size == 0:    # the embed fallback
         f = F
         mlp = all({k, n} == {E // model_size, F}
                   for _, k, n in shapes["matmul"])
@@ -3176,7 +3207,7 @@ def launch_shapes_gate(cfg, shapes, rows: int, model_size: int,
         lo, hi = mlp_columns(F, model_size, index)
         f = F // model_size if F % model_size == 0 else hi - lo
         mlp = all(n == f or k == f for _, k, n in shapes["matmul"])
-    return (bool(shapes["matmul"]) == bool(f) and mlp
+    return (ssd and bool(shapes["matmul"]) == bool(f) and mlp
             and bool(shapes["flash"]) == bool(hq)
             and all(bh == rows * hq and g == G
                     for bh, _, _, _, g in shapes["flash"]))
@@ -3213,24 +3244,43 @@ def traced(fn, dev, top=4):
                                         for t, n, k in rows[:top]]
 
 
+def plain_layers(cfg):
+    """The layers phase 13 also runs through the kernels' plain versions:
+    the first PLAIN_LAYERS, and the first attention layer where a hybrid
+    stack has none among them."""
+    at = set(range(min(PLAIN_LAYERS, cfg.num_layers)))
+    attn = [i for i in range(cfg.num_layers) if cfg.is_attention_layer(i)]
+    if cfg.family == "hybrid" and attn and not at & set(attn):
+        at.add(attn[0])
+    return at
+
+
+def stack_layer(model, params, i: int):
+    """Layer ``i`` of the stack: (its period position, its parameters)."""
+    from repro_torch.models.transformer import _layer
+    p = i % model.period
+    return p, _layer(params["layers"][f"p{p}"], i // model.period)
+
+
 def serving_layers(model, params, x, d, prompt, capacity, ctx_pre=None,
                    ctx_dec=None, relay=None, enc=None):
     """Each layer from one input, prefill then decode (``_sublayer``):
-    yields (i, layer parameters, the prefill's ``_sublayer`` outputs, the
-    decode's, the decode's cache entry) with ``x(i)`` and ``d(i)`` the
-    layer's inputs. The prefill's k/v (with a leading layer dim) are
+    yields (i, its period position, layer parameters, the prefill's
+    ``_sublayer`` outputs, the decode's, the decode's cache entry) with
+    ``x(i)`` and ``d(i)`` the layer's inputs. The prefill's k/v (with a
+    leading layer dim) are
     padded to ``capacity`` through ``relay`` (``pad_cache`` by default; a
     sharded cache's reshard) for the decode token at ``prompt``; the
     audio family's prefill attends to the encoder output ``enc`` and its
     decode to the cross K/V that the prefill wrote."""
-    from repro_torch.models.transformer import _layer, pad_cache
+    from repro_torch.models.transformer import pad_cache
     pre = ctx_pre or contextlib.nullcontext
     dec = ctx_dec or contextlib.nullcontext
     relay = relay or (lambda t, n: pad_cache({"k": t}, n)["k"])
     for i in range(model.cfg.num_layers):
-        lp = _layer(params["layers"]["p0"], i)
+        p, lp = stack_layer(model, params, i)
         with pre():
-            out = model._sublayer(0, lp, x(i), collect_cache=True,
+            out = model._sublayer(p, lp, x(i), collect_cache=True,
                                   enc_out=enc)
         new = out[3]
         if "k" in new:
@@ -3241,9 +3291,23 @@ def serving_layers(model, params, x, d, prompt, capacity, ctx_pre=None,
         cross = ((new["cross_k"], new["cross_v"]) if "cross_k" in new
                  else None)
         with dec():
-            dout = model._sublayer(0, lp, d(i), cache=entry,
+            dout = model._sublayer(p, lp, d(i), cache=entry,
                                    cache_index=prompt, cross=cross)
-        yield i, lp, out, dout, entry
+        yield i, p, lp, out, dout, entry
+
+
+def moe_record(model, p, lp, mid, m):
+    """A MoE layer's FFN input ``mid`` (the mixer's residual sum), its
+    MoE block's output ``m`` and the router's top-k sets on ``mid``
+    (sorted), on the CPU; None for a layer without experts."""
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import choose
+    if model.ffn_kind[p] != "moe":
+        return None
+    cfg = model.cfg
+    sets = choose(lp["ffn"], rms_norm(mid, lp["ln2"], cfg.rms_eps),
+                  cfg)[2].sort(dim=-1).values
+    return {"mid": mid.cpu(), "m": m.cpu(), "sets": sets.cpu()}
 
 
 def encoder_layer(model, lp, x):
@@ -3263,6 +3327,9 @@ def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
     first ``lw_rows`` prompts' embedding, each layer's prefill output and
     cache entries, the decode token's input and each layer's decode output
     and written cache (the k/v row at ``prompt``, or the ssm states); for
+    a MoE layer also its input to the FFN, the MoE block's output and
+    the router's top-k sets, of the prefill and the decode (``moe`` and
+    ``dmoe``: None for the other layers); for
     the audio family first the frames, each encoder layer's output and
     the encoder's (normed) output. Returns the readings and the tokens."""
     from repro_torch.configs import ShapeConfig
@@ -3310,7 +3377,7 @@ def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
     x0 = model.embed_tokens(params, toks[:lw_rows].long())
     d0 = model.embed_tokens(params, out[0][:lw_rows, None].long())
     chain = {"x0": x0.cpu(), "d0": d0.cpu(), "y": [], "new": [], "dy": [],
-             "dnew": []}
+             "dnew": [], "moe": [], "dmoe": []}
     enc = None
     if cfg.encoder_layers:
         h = inputs["encoder_embeds"][:lw_rows]
@@ -3321,10 +3388,13 @@ def sharded_serving_reference(cfg, dev, batch, prompt, capacity, steps,
         enc = rms_norm(h, params["encoder"]["norm"], cfg.rms_eps)
         chain["enc_out"] = enc.cpu()
     xs, ds = [x0], [d0]
-    for i, _, pre_out, dec_out, _ in serving_layers(
+    for i, p, lp, pre_out, dec_out, _ in serving_layers(
             model, params, lambda i: xs[i], lambda i: ds[i], prompt,
             capacity, enc=enc):
         y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
+        for key, inp, sub in (("moe", xs[i], pre_out),
+                              ("dmoe", ds[i], dec_out)):
+            chain[key].append(moe_record(model, p, lp, inp + sub[1], sub[2]))
         xs.append(y)
         ds.append(dy)
         chain["y"].append(y.cpu())
@@ -3357,13 +3427,18 @@ def sharded_serving_batch(cfg, batch, prompt, dev):
 def sharded_run_config(arch, reduced, widths=(), layers=0):
     """Phase 13's config of ``arch`` (reduced for the CPU rehearsal), on
     the use_pallas path, with ``widths`` where given (a ``dtype`` by its
-    torch name), and the same cut to ``layers`` (0: every layer)."""
+    torch name; ``moe.d_ff`` the experts' hidden width), and the same cut
+    to ``layers`` (0: every layer)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    cfg = dataclasses.replace(
-        cfg.reduced() if reduced else cfg, use_pallas=True,
-        **{k: getattr(torch, v) if k == "dtype" else v for k, v in widths})
+    cfg = cfg.reduced() if reduced else cfg
+    top = {k: getattr(torch, v) if k == "dtype" else v for k, v in widths
+           if not k.startswith("moe.")}
+    moe = {k[4:]: v for k, v in widths if k.startswith("moe.")}
+    if moe:
+        top["moe"] = dataclasses.replace(cfg.moe, **moe)
+    cfg = dataclasses.replace(cfg, use_pallas=True, **top)
     return cfg, dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
 
 
@@ -3375,19 +3450,20 @@ def sharded_serving_rank(job_path: str) -> int:
     then drives the sharded prefill, traced, and decode steps (launch
     counts zeroed just before, read just after); prints its readings as
     one JSON line."""
-    import dataclasses
     from repro_torch import kernels
-    from repro_torch.configs import ShapeConfig, get_config, kv_cache_specs
+    from repro_torch.configs import ShapeConfig, kv_cache_specs
     from repro_torch.device import synchronize
-    from repro_torch.distributed.sharding import (LOCAL, ModelAxis,
-                                                  NamedSharding,
+    from repro_torch.distributed.sharding import (LOCAL, NamedSharding,
                                                   PartitionSpec, ShardGroup,
-                                                  entry_axes, use_model_axis)
+                                                  entry_axes)
     from repro_torch.launch.mesh import Mesh, init_from_env
     from repro_torch.launch.steps import (cache_layout, decode_cache,
                                           init_serving_shards,
                                           make_decode_step, make_prefill_step,
-                                          reshard_cache_leaf)
+                                          reshard_cache_leaf, serving_axes,
+                                          use_serving_axes)
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.moe import choose
     from repro_torch.models.transformer import _layers, build_model
     from repro_torch.tree import tree_leaves, tree_map
     with open(job_path) as f:
@@ -3440,7 +3516,9 @@ def sharded_serving_rank(job_path: str) -> int:
     rows = group.slices(NamedSharding(mesh, PartitionSpec(data or None)),
                         (lw,))[0]
     size = mesh.sizes["model"]
-    axes = [ModelAxis(group, **cache_layout(sh)) if size > 1 else None
+    # (ModelAxis, ExpertAxis) of the prefill and the decode step, the
+    # rank's rows at their places in the chain's
+    axes = [serving_axes(cfg, group, cache_layout(sh), (rows.start, lw))
             for sh in (pre.out_shardings[1], dec.in_shardings[1]["cache"])]
     pre_specs = kv_cache_specs(cfg, lw, S)
     dec_specs = kv_cache_specs(cfg, lw, T)
@@ -3454,16 +3532,56 @@ def sharded_serving_rank(job_path: str) -> int:
         that ``decode_cache`` runs between the steps)."""
         return reshard_cache_leaf(t, pre.out_shardings[1]["k"],
                                   dec.in_shardings[1]["cache"]["k"],
-                                  axes[0] or LOCAL, capacity)
+                                  axes[0][0] or LOCAL, capacity)
 
     errs = {"prefill": 0.0, "prefill_cache": 0.0, "decode": 0.0,
             "decode_cache": 0.0}
+    if cfg.moe is not None:
+        errs.update(moe=0.0, moe_decode=0.0)
     worst_at = {}             # the layer of each largest error
     plain_errs = {}           # mixer, mlp (where a layer has one), ...
+    # the router fed one process's FFN input: its top-k sets equal one
+    # process's; fed the rank's own, the share of tokens whose set flips
+    routing = {"sets_equal": True, "flipped": 0, "tokens": 0}
 
     def held(key, err, layer):
         if err >= errs.get(key, 0.0):
             errs[key], worst_at[key] = err, layer
+    def against_plain(p, lp, x, d, pre_out, dec_out, entry):
+        """The layer's errors against the same layer with the kernels'
+        plain versions (phase 9's gate (c)) on the same shards, inside the
+        same axes, from the same inputs; the MLP from the kernel path's
+        mixer output, as phase 8 (b) holds whisper's (its
+        cross-attention would carry the attention kernel's roundings into
+        the MLP's input, amplified). A MoE layer's mixers alone: its
+        block is torch ops on both paths, and a near-tie flips on the
+        mixer's rounding (phase 8 (a))."""
+        cross = ((pre_out[3]["cross_k"], pre_out[3]["cross_v"])
+                 if enc is not None else None)
+        if model.ffn_kind[p] == "moe":
+            with use_serving_axes(axes[0]), plain_versions():
+                p_h = model._mixer(p, lp, x, enc_out=enc)[1]
+            with use_serving_axes(axes[1]), plain_versions():
+                p_dh = model._mixer(p, lp, d, cache=entry, cache_index=S,
+                                    cross=cross)[1]
+            return {"mixer": rel_err(pre_out[1], p_h),
+                    "decode_mixer": rel_err(dec_out[1], p_dh)}
+        with use_serving_axes(axes[0]):
+            mid = model._mixer(p, lp, x, enc_out=enc)[0]
+        with use_serving_axes(axes[0]), plain_versions():
+            p_out = model._sublayer(p, lp, x, collect_cache=True,
+                                    enc_out=enc)
+            p_mlp = model._ffn(p, lp, mid)[1]
+        with use_serving_axes(axes[1]), plain_versions():
+            p_dout = model._sublayer(p, lp, d, cache=entry, cache_index=S,
+                                     cross=cross)
+        errs = {"mixer": rel_err(pre_out[1], p_out[1])}
+        if p_mlp is not None:
+            errs["mlp"] = rel_err(pre_out[2], p_mlp)
+        errs["prefill"] = rel_err(pre_out[0], p_out[0])
+        errs["decode"] = rel_err(dec_out[0], p_dout[0])
+        return errs
+
     passed_through = True
     lparams = tree_map(lambda t: t.to_local(), params)
     enc = None
@@ -3472,10 +3590,10 @@ def sharded_serving_rank(job_path: str) -> int:
         h = chain["frames"][rows]
         for j, lp in enumerate(_layers(lparams["encoder"]["layers"],
                                        cfg.encoder_layers)):
-            with use_model_axis(axes[0]):
+            with use_serving_axes(axes[0]):
                 y = encoder_layer(model, lp, h)
             if j < PLAIN_LAYERS:
-                with use_model_axis(axes[0]), plain_versions():
+                with use_serving_axes(axes[0]), plain_versions():
                     plain_errs["encoder"] = max(plain_errs.get(
                         "encoder", 0.0), rel_err(y, encoder_layer(
                             model, lp, h)))
@@ -3484,39 +3602,38 @@ def sharded_serving_rank(job_path: str) -> int:
         enc = chain["enc_out"][rows]
     xs = {0: chain["x0"][rows]}
     ds = {0: chain["d0"][rows]}
-    for i, lp, pre_out, dec_out, entry in serving_layers(
+    for i, p, lp, pre_out, dec_out, entry in serving_layers(
             model, lparams, lambda i: xs[i], lambda i: ds[i], S, T,
-            lambda: use_model_axis(axes[0]), lambda: use_model_axis(axes[1]),
-            relay, enc):
+            lambda: use_serving_axes(axes[0]),
+            lambda: use_serving_axes(axes[1]), relay, enc):
         y, new, dy, dnew = pre_out[0], pre_out[3], dec_out[0], dec_out[3]
-        if i < PLAIN_LAYERS:
-            # the same layer with the kernels' plain versions (phase 9's
-            # gate (c)) on the same shards, inside the same ModelAxis,
-            # from the same inputs; the MLP from the kernel path's mixer
-            # output, as phase 8 (b) holds whisper's (its cross-attention
-            # would carry the attention kernel's roundings into the MLP's
-            # input, amplified)
-            cross = ((pre_out[3]["cross_k"], pre_out[3]["cross_v"])
-                     if enc is not None else None)
-            with use_model_axis(axes[0]):
-                mid = model._mixer(0, lp, xs[i], enc_out=enc)[0]
-            with use_model_axis(axes[0]), plain_versions():
-                p_out = model._sublayer(0, lp, xs[i], collect_cache=True,
-                                        enc_out=enc)
-                p_mlp = model._ffn(0, lp, mid)[1]
-            with use_model_axis(axes[1]), plain_versions():
-                p_dout = model._sublayer(0, lp, ds[i], cache=entry,
-                                         cache_index=S, cross=cross)
-            for k, got, want in (("mixer", pre_out[1], p_out[1]),
-                                 ("mlp", pre_out[2], p_mlp),
-                                 ("prefill", y, p_out[0]),
-                                 ("decode", dy, p_dout[0])):
-                if want is not None:
-                    plain_errs[k] = max(plain_errs.get(k, 0.0),
-                                        rel_err(got, want))
-            del p_out, p_dout, p_mlp, mid
-        held("prefill", rel_err(y, chain["y"][i][rows]), i)
-        held("decode", rel_err(dy, chain["dy"][i][rows]), i)
+        experts = model.ffn_kind[p] == "moe"
+        if i in plain_layers(cfg):
+            for k, err in against_plain(p, lp, xs[i], ds[i], pre_out,
+                                        dec_out, entry).items():
+                plain_errs[k] = max(plain_errs.get(k, 0.0), err)
+        if experts:
+            # the mixer half against one process's FFN input; the MoE
+            # block fed that input against one process's block
+            for key, inp, out, rec, ctx in (
+                    ("prefill", xs[i], pre_out, chain["moe"][i], axes[0]),
+                    ("decode", ds[i], dec_out, chain["dmoe"][i], axes[1])):
+                mid, want = inp + out[1], rec["mid"][rows]
+                held(key, rel_err(mid, want), i)
+                with use_serving_axes(ctx):
+                    m = model._ffn(p, lp, want)[1]
+                    sets = [choose(lp["ffn"], rms_norm(
+                        z, lp["ln2"], cfg.rms_eps), cfg)[2].sort(dim=-1)
+                        .values for z in (want, mid)]
+                held("moe" if key == "prefill" else "moe_decode",
+                     rel_err(m, rec["m"][rows]), i)
+                one = rec["sets"][rows]
+                routing["sets_equal"] &= torch.equal(sets[0], one)
+                routing["flipped"] += int((sets[1] != one).any(-1).sum())
+                routing["tokens"] += one[..., 0].numel()
+        else:
+            held("prefill", rel_err(y, chain["y"][i][rows]), i)
+            held("decode", rel_err(dy, chain["dy"][i][rows]), i)
         for k, v in new.items():
             want = chain["new"][i][k][part(k, pre_specs, pre.out_shardings[1])]
             held("prefill_cache", rel_err(v, want), i)
@@ -3546,11 +3663,13 @@ def sharded_serving_rank(job_path: str) -> int:
     # -- the main path: the sharded steps, counted -------------------------
     for fam in kernels.FAMILIES:
         fam.reset_counts()
-    comm0 = group.comm_s
+    comm0, a2a0 = group.comm_s, (group.a2a_s, group.a2a_bytes)
     with recorded_launch_shapes() as shapes:
         (logits, cache), prefill_s, device_ms, device_top = traced(
             lambda: pre.sharded_fn(params, batch), dev)
         prefill_comm = group.comm_s - comm0
+        a2a = {"prefill_ms": (group.a2a_s - a2a0[0]) * 1e3,
+               "prefill_bytes": group.a2a_bytes - a2a0[1]}
         first = group.gather(logits, pre.out_shardings[0])[:, -1].float()
         out = [first.argmax(dim=-1)]
         kv = decode_cache(cache, pre, dec, group)
@@ -3567,12 +3686,16 @@ def sharded_serving_rank(job_path: str) -> int:
             if i == 0:
                 nbytes["decode"] = decode_shards + nbytes_of(
                     (db["tokens"], kv)) + 4 * ("k" in kv)
+                a2a0 = (group.a2a_s, group.a2a_bytes)
             logits, kv = dec.sharded_fn(params, db)
+            if i == 0:
+                a2a["decode_bytes"] = group.a2a_bytes - a2a0[1]
             out.append(group.gather(logits, dec.out_shardings[0])[:, -1]
                        .argmax(dim=-1))
             synchronize(dev)
             step_s.append(time.monotonic() - t)
         decode_comm = group.comm_s - comm0
+        a2a["decode_ms"] = (group.a2a_s - a2a0[0]) * 1e3
     launches = {k: v for fam in kernels.FAMILIES
                 for k, v in fam.launches.items()}
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
@@ -3586,7 +3709,7 @@ def sharded_serving_rank(job_path: str) -> int:
         "init_s": init_s, "chain_s": chain_s, "decode_s": sum(step_s),
         "shard_bytes": shard_bytes, "bytes": nbytes,
         "peak": peak, "errs": errs, "plain_errs": plain_errs,
-        "worst_at": worst_at,
+        "worst_at": worst_at, "routing": routing, "a2a": a2a,
         "passed_through": passed_through,
         "shapes_ok": launch_shapes_gate(cfg, shapes, len(range(
             *group.slices(NamedSharding(mesh, PartitionSpec(data or None)),
@@ -3602,6 +3725,15 @@ def sharded_serving_rank(job_path: str) -> int:
     return 0
 
 
+# the kernel families a family's serving steps launch: the moe family's
+# blocks are torch ops (the reference's einsums), its attention flash
+PATH_KERNELS = {"ssm": ("ssd_plain",), "moe": ("flash_plain",),
+                "hybrid": ("matmul_plain", "flash_plain", "ssd_plain"),
+                "dense": ("matmul_plain", "flash_plain"),
+                "vlm": ("matmul_plain", "flash_plain"),
+                "audio": ("matmul_plain", "flash_plain")}
+
+
 def sharded_serving_phase(dev, waves=SHARDED_SERVING, reduced=False,
                           timeout_s=600.0):
     """Phase 13: the serving steps' ``sharded_fn`` for each run of
@@ -3614,11 +3746,18 @@ def sharded_serving_phase(dev, waves=SHARDED_SERVING, reduced=False,
     input (the audio family's encoder layers too), prefill and decode
     outputs and cache (the k/v at the rank's positions, the row the
     decode token writes, the cross K/V, the ssm states) within PLAIN_TOL
-    of one process, the rest of the cache passed through; the first
-    PLAIN_LAYERS layers' mixer, MLP and outputs through the kernels
+    of one process, the rest of the cache passed through; for a MoE
+    layer the mixer half (the FFN's input) so, and the MoE block fed one
+    process's FFN input within PLAIN_TOL of one process's with the same
+    top-k sets (fed the rank's own, the flipped share is printed, not
+    gated: near-ties flip on the mixer's rounding, as in phase 8 (a));
+    the ``plain_layers`` (the first PLAIN_LAYERS and a hybrid stack's
+    first attention layer): mixer, MLP and outputs through the kernels
     within PLAIN_TOL of the same layers through their plain versions, on
-    the same shards inside the same ModelAxis, from the same inputs;
-    argument bytes equal ``dryrun.price``'s for the mesh; peak memory
+    the same shards inside the same axes, from the same inputs (a MoE
+    layer's mixers only); argument bytes equal ``dryrun.price``'s for the
+    mesh, and the bytes sent into a step's all-to-alls its
+    ``moe_all_to_all`` term; peak memory
     below the step's arguments (the shards, the batch and the cache: the
     dry run's argument bytes) plus the largest leaf in f32 (a draw holds
     at most that) plus the dry run's temporaries and outputs, and below
@@ -3626,7 +3765,8 @@ def sharded_serving_phase(dev, waves=SHARDED_SERVING, reduced=False,
     the rank's shard shapes, a rank left without heads launching no
     flash or SSD kernel; every kernel family of the path launched on
     some rank. Printed: host and device ms of a prefill per rank, the
-    collectives' share, decode tokens/s, the first logits and greedy
+    collectives' share (the all-to-alls' apart), decode tokens/s, the
+    first logits and greedy
     tokens beside one process, each wave's seconds. Returns the ranks'
     summed launch counts; raises at the end if a kernel of a path
     launched no time (as on the CPU, where the plain versions launch
@@ -3654,8 +3794,7 @@ def sharded_serving_phase(dev, waves=SHARDED_SERVING, reduced=False,
                 for k, v in launches.items():
                     total[k] = total.get(k, 0) + v
                 cfg, shape = job["cfg"], job["shape"]
-                need = (("ssd_plain",) if cfg.family == "ssm"
-                        else ("matmul_plain", "flash_plain"))
+                need = PATH_KERNELS[cfg.family]
                 if cfg.dtype == torch.float32:      # a probe's f32 run
                     need = tuple(k.replace("_plain", "_fma_plain")
                                  for k in need)
@@ -3723,6 +3862,10 @@ def sharded_serving_jobs(run, dev, reduced, timeout_s, prefix):
                   for k, n in (("prefill", prompt), ("decode", capacity))}
         want = {k: v["memory"]["argument_size_in_bytes"]
                 for k, v in priced.items()}
+        # the bytes a rank sends into a step's all-to-alls (0 where the
+        # experts stay whole or the model has none)
+        want_a2a = {k: v["collective_terms"].get("moe_all_to_all", {})
+                    .get("bytes", 0) for k, v in priced.items()}
         temps = max(v["memory"]["temp_size_in_bytes"]
                     + v["memory"]["output_size_in_bytes"]
                     for v in priced.values())
@@ -3742,6 +3885,7 @@ def sharded_serving_jobs(run, dev, reduced, timeout_s, prefix):
                        "out": f"{path}.logits"}, f)
         jobs.append({"cfg": cfg, "shape": shape, "path": f"{path}.json",
                      "out": f"{path}.logits", "one": one, "want": want,
+                     "want_a2a": want_a2a,
                      "shard": shard, "whole": whole, "where": where,
                      # the step's arguments (the weights' shards, the batch
                      # and, in decode, the cache), a leaf's draw, and its
@@ -3781,9 +3925,12 @@ def sharded_serving_held(job, done):
             r["peak"] < bound
             and not (whole_gate and r["peak"] >= whole))
         pe = r["plain_errs"]
+        a2a, rt = r["a2a"], r["routing"]
+        a2a_ok = (a2a["prefill_bytes"] == job["want_a2a"]["prefill"]
+                  and a2a["decode_bytes"] == job["want_a2a"]["decode"])
         ok = (max(e.values()) <= PLAIN_TOL
               and max(pe.values()) <= PLAIN_TOL
-              and r["passed_through"]
+              and r["passed_through"] and a2a_ok and rt["sets_equal"]
               and r["bytes"] == want and r["shard_bytes"] == shard
               and peak_ok and r["shapes_ok"]
               and r["devices"] == [where])
@@ -3798,6 +3945,22 @@ def sharded_serving_held(job, done):
                    else "]"))
         dms = ("not measured" if r["prefill_device_ms"] is None
                else f"{r['prefill_device_ms']:.3f}")
+        experts = ""
+        if cfg.moe is not None:
+            experts = (
+                f"the MoE blocks fed one process's FFN input: prefill "
+                f"{e['moe']:.2e}, decode {e['moe_decode']:.2e} [<= "
+                f"{PLAIN_TOL:g}], top-{cfg.moe.experts_per_token} sets "
+                f"equal {rt['sets_equal']}; fed the rank's own, "
+                f"{rt['flipped']} of {rt['tokens']} sets flipped "
+                f"({rt['flipped'] / max(rt['tokens'], 1):.2%}, not gated); "
+                f"all-to-all bytes sent {a2a['prefill_bytes']} (prefill) "
+                f"and {a2a['decode_bytes']} (a decode step), dry run "
+                f"{job['want_a2a']['prefill']} and "
+                f"{job['want_a2a']['decode']}; all-to-all host ms: prefill "
+                f"{a2a['prefill_ms']:.1f}, decode {a2a['decode_ms']:.1f} "
+                f"(the other collectives {r['prefill_comm_ms'] - a2a['prefill_ms']:.1f}"
+                f" and {r['decode_comm_ms'] - a2a['decode_ms']:.1f}); ")
         print(f"  {cfg.name} {shape} rank {r['rank']} "
               f"{r['coords']} on {r['devices']}: layer by layer "
               f"from one input against one process, "
@@ -3808,7 +3971,7 @@ def sharded_serving_held(job, done):
               f", its written cache {e['decode_cache']:.2e} [<= "
               f"{PLAIN_TOL:g}] (worst layers {r['worst_at']}), "
               f"the rest passed through "
-              f"{r['passed_through']}; the kernels against their "
+              f"{r['passed_through']}; " + experts + "the kernels against their "
               f"plain versions on the shards, {PLAIN_LAYERS} "
               f"layers: " + ", ".join(
                   f"{k} {v:.2e}" for k, v in pe.items())
@@ -3831,9 +3994,9 @@ def sharded_serving_held(job, done):
     if failed:
         raise AssertionError(
             f"phase 13 {cfg.name} {shape} ranks {failed}: a "
-            "layer, a kernel against its plain version, the "
-            "cache, the bytes, the peak, the launch shapes or "
-            "the device disagree")
+            "layer, a MoE block or its routing, a kernel against its "
+            "plain version, the cache, the bytes, the all-to-all bytes, "
+            "the peak, the launch shapes or the device disagree")
     if ranks[0]["prefill_device_top"]:
         print(f"  {cfg.name} {shape} rank 0's prefill, top "
               f"device events [name, ms, count]: "
@@ -3857,7 +4020,7 @@ GLOO_OPS = ("all_reduce/float32", "all_reduce/int64", "all_reduce/bfloat16",
             "broadcast/float32", "all_gather/float32", "all_gather/bfloat16",
             "all_gather_into_tensor/float32",
             "reduce_scatter_tensor/float32", "all_to_all_single/float32",
-            "reduce/float32", "barrier/float32")
+            "all_to_all_single/bfloat16", "reduce/float32", "barrier/float32")
 
 
 def gloo_probe_rank(case: str) -> int:
@@ -3900,10 +4063,11 @@ def gloo_probe_rank(case: str) -> int:
     return 0
 
 
-def gloo_probe_main() -> int:
-    """``chip_smoke.py --gloo-probe``: which collectives gloo carries on
-    CUDA tensors in this torch, each in a pair of ranks of its own on
-    ``cuda:0`` (a collective that crashes its ranks harms no other)."""
+def gloo_probe_main(cases=GLOO_OPS) -> int:
+    """``chip_smoke.py --gloo-probe [OP/DTYPE ...]``: which collectives gloo
+    carries on CUDA tensors in this torch (``cases``, by default all of
+    ``GLOO_OPS``), each in a pair of ranks of its own on ``cuda:0`` (a
+    collective that crashes its ranks harms no other)."""
     from repro_torch.launch.mesh import run_ranks
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3911,7 +4075,7 @@ def gloo_probe_main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    for case in GLOO_OPS:
+    for case in cases:
         ranks = run_ranks([sys.executable, str(Path(__file__).resolve()),
                            "--gloo-probe-rank", case], 2, 90, env=env)
         codes = [c for c, _, _ in ranks]
@@ -4134,7 +4298,7 @@ def main() -> int:
     print("[7] training on the card: gradients, the full model, restart, "
           "co-location with the served model", flush=True)
     c_counts, grads = training_phase(mcfg, dev)
-    # phase 8 holds 58 GiB of parameters: free what phases 6 and 7 left
+    # phase 8 holds 21 GiB of parameters: free what phases 6 and 7 left
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4213,11 +4377,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("[13] the serving steps sharded over a mesh of processes, "
-          "tensor-parallel on the model axis, the ranks of one gloo group "
-          "on the card: qwen2.5-14b in bf16 cut to its first 8 layers on "
-          "(1, 2) and whole on (1, 3), mamba2-130m cut to its first 8 "
-          "layers on (1, 2) and (2, 1) and whole on (1, 16), whisper-base "
-          "whole on (1, 3)", flush=True)
+          "tensor-parallel on the model axis, the MoE blocks "
+          "expert-parallel over the data axes, the ranks of one gloo group "
+          "on the card: qwen2.5-14b in bf16 cut to its first 2 layers on "
+          "(1, 2) and 24 on (1, 3), mamba2-130m cut to its first 8 "
+          "layers on (1, 2), (2, 1) and (1, 16), whisper-base whole on "
+          "(1, 3), qwen3-moe-30b-a3b cut to its first 8 layers on (2, 1) "
+          "and (2, 2), jamba-1.5-large-398b's first period (experts' d_ff "
+          "6144) on (2, 2)", flush=True)
     p_counts = sharded_serving_phase(dev)
 
     summary = []
@@ -4253,7 +4420,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--restart-gate"]:
         sys.exit(restart_main(sys.argv[2]))
     if sys.argv[1:2] == ["--gloo-probe"]:
-        sys.exit(gloo_probe_main())
+        sys.exit(gloo_probe_main(sys.argv[2:] or GLOO_OPS))
     if sys.argv[1:2] == ["--gloo-probe-rank"]:
         sys.exit(gloo_probe_rank(sys.argv[2]))
     if sys.argv[1:2] == ["--reduce-probe"]:

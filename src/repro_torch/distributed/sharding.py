@@ -22,7 +22,10 @@ step runs so: storage sharded, compute on gathered tensors
 (``launch.steps``). The serving steps compute on shards: inside one,
 ``model_axis()`` is this rank's ``ModelAxis`` (``use_model_axis``), and
 the layers run tensor-parallel on their local weights with its sum, max
-and all-gather over the model axis. ``constrain`` is the identity
+and all-gather over the model axis; for a model with experts,
+``expert_axis()`` is its ``ExpertAxis`` (``use_expert_axis``), over the
+data axes that split the experts, whose all-to-all carries the MoE
+blocks' expert inputs and outputs. ``constrain`` is the identity
 without a mesh, on one device and inside a ``ModelAxis`` (whose layers
 hold their shards already), and raises elsewhere on a larger mesh.
 """
@@ -141,6 +144,7 @@ class _Ctx(threading.local):
         self.rules: Dict[str, Any] = dict(DEFAULT_RULES)
         self.batch_mean: Optional[Callable] = None
         self.model_axis: Optional["ModelAxis"] = None
+        self.expert_axis: Optional["ExpertAxis"] = None
 
 
 _CTX = _Ctx()
@@ -289,13 +293,41 @@ class ShardGroup:
         self.coords: Dict[str, int] = dict(zip(mesh.axis_names, where))
         self.device = device or local_device(mesh)
         self.comm_s = 0.0
+        # the expert axis's all-to-alls: their share of comm_s, and the
+        # bytes this rank sent into them
+        self.a2a_s = 0.0
+        self.a2a_bytes = 0
         self._device_mesh = None
+        self._groups: Dict[Tuple[str, ...], Any] = {}
 
     @property
     def device_mesh(self):
         if self._device_mesh is None:
             self._device_mesh = self.mesh.device_mesh()
         return self._device_mesh
+
+    def process_group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only
+        along ``axes``, in row-major order over them: the device mesh's
+        group of one axis, else one ``new_group`` for every coordinate of
+        the other axes, made once (every rank makes all of them, in one
+        order, as ``new_group`` asks)."""
+        axes = tuple(axes)
+        if axes not in self._groups:
+            if len(axes) == 1:
+                self._groups[axes] = self.device_mesh.get_group(axes[0])
+            else:
+                names = self.mesh.axis_names
+                idx = torch.arange(self.mesh.size).reshape(self.mesh.shape)
+                lead = [names.index(a) for a in axes]
+                rest = [i for i in range(len(names)) if i not in lead]
+                runs = idx.permute(rest + lead).reshape(
+                    -1, math.prod(self.mesh.sizes[a] for a in axes))
+                for run in runs.tolist():
+                    pg = torch.distributed.new_group(run)
+                    if self.rank in run:
+                        self._groups[axes] = pg
+        return self._groups[axes]
 
     def slices(self, sharding: NamedSharding,
                shape: Sequence[int]) -> Tuple[slice, ...]:
@@ -513,21 +545,25 @@ class ModelAxis(LocalAxis):
     """This rank's part of the model axis inside a sharded serving step:
     its ``size`` and ``index`` on the axis, how the serving cache is laid
     out over it, and a sum, a max and an all-gather over the ranks that
-    differ only along it (``group.device_mesh.get_group("model")``), whose
-    host seconds add to ``group.comm_s``. 16-bit floats sum in f32 (a sum
-    of partial products is rounded once), a small one as a gather and a
-    local sum (``SMALL_REDUCE_BYTES``); a gather carries a tensor in its
-    own dtype. ``kv`` is the k/v cache's split over the axis:
-    ``"seq"`` (positions), ``"heads"`` (kv heads) or None (whole on every
-    rank); ``conv`` whether ``conv_state``'s channels are split."""
+    differ only along it (``group.process_group(axes)``; ``axes`` is
+    ("model",) but for ``ExpertAxis``), whose host seconds add to
+    ``group.comm_s``. 16-bit floats sum in f32 (a sum of partial products
+    is rounded once), a small one as a gather and a local sum
+    (``SMALL_REDUCE_BYTES``); a gather carries a tensor in its own dtype.
+    ``kv`` is the k/v cache's split over the axis: ``"seq"`` (positions),
+    ``"heads"`` (kv heads) or None (whole on every rank); ``conv`` whether
+    ``conv_state``'s channels are split."""
 
     def __init__(self, group: ShardGroup, kv: Optional[str] = None,
-                 conv: bool = False):
-        self.group = group
-        self.size = group.mesh.sizes["model"]
-        self.index = group.coords["model"]
+                 conv: bool = False, axes: Sequence[str] = ("model",)):
+        self.group, self.axes = group, tuple(axes)
+        sizes = group.mesh.sizes
+        self.size = math.prod(sizes[a] for a in self.axes)
+        self.index = 0                  # row-major over the axes
+        for a in self.axes:
+            self.index = self.index * sizes[a] + group.coords[a]
         self.kv, self.conv = kv, conv
-        self._pg = group.device_mesh.get_group("model")
+        self._pg = group.process_group(self.axes) if self.size > 1 else None
 
     def _run(self, fn, x):
         t0 = time.monotonic()
@@ -536,6 +572,8 @@ class ModelAxis(LocalAxis):
         return out
 
     def _reduce(self, x: torch.Tensor, op, local) -> torch.Tensor:
+        if self.size == 1:
+            return x
         wide = _WIDE.get(x.dtype, x.dtype)
         if x.numel() * wide.itemsize <= SMALL_REDUCE_BYTES:
             parts = self._all_gather(x.to(wide))
@@ -583,3 +621,61 @@ def use_model_axis(axis: Optional[ModelAxis]):
         yield
     finally:
         _CTX.model_axis = prev
+
+
+class ExpertAxis(ModelAxis):
+    """This rank's part of the expert axis inside a sharded serving step:
+    the ranks that differ from it only along ``axes``, the data axes that
+    split the experts (``INFER_PARAM_RULES`` puts ``"expert"`` on
+    ``("pod", "data")`` where they divide the experts; none where they
+    do not, and then every rank holds them all). ``ModelAxis``'s
+    collectives over those ranks (the gather of the router's weight), the
+    all-to-all that moves the MoE block's expert inputs to their experts'
+    ranks and back, and ``rows`` = (start, total): where this rank's rows
+    lie in the step's batch, so that the router sees them as one process
+    lays them out. The all-to-alls' host seconds also add to
+    ``group.a2a_s``, and the bytes sent into them to
+    ``group.a2a_bytes``."""
+
+    def __init__(self, group: ShardGroup, axes: Sequence[str],
+                 rows: Tuple[int, int]):
+        super().__init__(group, axes=axes)
+        self.rows = rows
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` split along dim 0 into ``size`` equal parts, part ``j``
+        sent to the axis's rank ``j``; returns the parts received, rank
+        ``j``'s at ``j``, in ``x``'s dtype."""
+        def run(x):
+            out = torch.empty_like(x)
+            torch.distributed.all_to_all_single(out, x, group=self._pg)
+            return out
+        comm = self.group.comm_s
+        out = self._run(run, x.contiguous())
+        self.group.a2a_s += self.group.comm_s - comm
+        self.group.a2a_bytes += x.numel() * x.element_size()
+        return out
+
+
+def expert_axes(mesh: Mesh, num_experts: int) -> Tuple[str, ...]:
+    """The mesh axes that split ``num_experts`` experts in the serving
+    steps (``INFER_PARAM_RULES``' ``"expert"``, trailing axes dropped
+    until they divide)."""
+    return entry_axes(logical_to_spec(("expert",), mesh, INFER_PARAM_RULES,
+                                      (num_experts,))[0])
+
+
+def expert_axis() -> Optional[ExpertAxis]:
+    """The ``ExpertAxis`` of the sharded step running on this thread, or
+    None (one device, or a model without experts)."""
+    return _CTX.expert_axis
+
+
+@contextlib.contextmanager
+def use_expert_axis(axis: Optional[ExpertAxis]):
+    prev = _CTX.expert_axis
+    _CTX.expert_axis = axis
+    try:
+        yield
+    finally:
+        _CTX.expert_axis = prev

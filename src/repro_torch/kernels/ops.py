@@ -8,7 +8,7 @@ import torch
 
 from repro_torch.core.descriptor import build_plain
 from repro_torch.kernels.flash_attention import flash_attention_desc
-from repro_torch.kernels.mamba2_scan import mamba2_scan_desc
+from repro_torch.kernels.mamba2_scan import TC_HEAD_DIM, mamba2_scan_desc
 from repro_torch.kernels.matmul import matmul_desc
 
 
@@ -48,9 +48,19 @@ def mamba2_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Chunked SSD scan. x (B,S,NH,HD), dt (B,S,NH), A (NH,), Bm/Cm (B,S,DS),
     D (NH,). Returns (y (B,S,NH,HD) x.dtype, h_final (B,NH,HD,DS) f32).
     The model passes x, Bm and Cm as strided views of one activation; they
-    are made contiguous here."""
+    are made contiguous here. A head wider than the kernel's 64 columns
+    (jamba's 128) runs as HD / 64 heads of 64: the scan's head-dim
+    columns are independent (dt, A and D are the head's, Bm and Cm every
+    head's), so each half-head carries its head's dt, A and D and the
+    split is exact."""
     B, S, NH, HD = x.shape
     DS = Bm.shape[-1]
+    if HD > TC_HEAD_DIM and HD % TC_HEAD_DIM == 0:
+        n = HD // TC_HEAD_DIM
+        y, h = mamba2_scan(x.reshape(B, S, NH * n, TC_HEAD_DIM),
+                           dt.repeat_interleave(n, -1), A.repeat_interleave(n),
+                           Bm, Cm, D.repeat_interleave(n), chunk=chunk)
+        return y.reshape(B, S, NH, HD), h.reshape(B, NH, HD, DS)
     desc = mamba2_scan_desc(B, S, NH, HD, DS, chunk, x.dtype)
     y, h = build_plain(desc)(*(t.contiguous() for t in (x, dt, A, Bm, Cm,
                                                          D)))

@@ -398,7 +398,11 @@ def collective_terms(cfg: ModelConfig, shape: ShapeConfig, mesh: Mesh,
                     3 * b_loc * s_tok * 4, ax)
             continue
         if "expert" in dims:
-            # a (dispatch, combine) pair per MoE layer, counted on its wo
+            # a (dispatch, combine) pair per MoE layer, counted on its wo:
+            # each the (b_loc, E, C, D) buffer that a rank sends into the
+            # sharded serving step's all-to-all (``moe.dispatch``,
+            # ``moe.combine_back``); the router weight's gather beside
+            # them (d_model x E a layer) is not modeled
             if dims[-1] == "embed":
                 buf = (b_loc * cfg.moe.num_experts
                        * moe_capacity(s_tok, cfg) * cfg.d_model * act)

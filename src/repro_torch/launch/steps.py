@@ -21,12 +21,13 @@ follows the reference's shardings, compute runs on gathered tensors (see
 ``make_train_step``). The serving steps hold the weights in the model
 dtype (``serving_param_shapes``), not as f32 masters; on a mesh of more
 than one process their ``sharded_fn`` computes on the shards,
-tensor-parallel over the model axis (``sharding.ModelAxis``), for the
-dense, vlm, ssm and audio families, on any model axis
-(``sharded_serving``).
+tensor-parallel over the model axis (``sharding.ModelAxis``), on any
+model axis, and the MoE blocks expert-parallel over the data axes
+(``sharding.ExpertAxis``), for every family (``sharded_serving``).
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -37,12 +38,13 @@ from repro_torch.configs.base import (ModelConfig, ShapeConfig, input_specs,
                                       kv_cache_specs)
 from repro_torch.distributed.sharding import (DEFAULT_RULES,
                                               INFER_PARAM_RULES, LOCAL,
-                                              PARAM_RULES, ModelAxis,
-                                              NamedSharding, PartitionSpec,
-                                              ShardGroup,
-                                              entry_axes, is_axes_leaf,
-                                              logical_to_spec, tree_shardings,
-                                              use_batch_mean, use_model_axis)
+                                              PARAM_RULES, ExpertAxis,
+                                              ModelAxis, NamedSharding,
+                                              PartitionSpec, ShardGroup,
+                                              entry_axes, expert_axes,
+                                              is_axes_leaf, logical_to_spec,
+                                              tree_shardings, use_batch_mean,
+                                              use_expert_axis, use_model_axis)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.transformer import (TransformerLM, build_model,
                                            loss_fn, pad_cache)
@@ -350,8 +352,10 @@ def _logits_sharding(cfg: ModelConfig, mesh: Mesh,
         shape=(shape.global_batch, 1, cfg.vocab_size)))
 
 
-# families whose serving steps run tensor-parallel on a mesh of processes
-SHARDED_SERVING_FAMILIES = ("dense", "vlm", "ssm", "audio")
+# families whose serving steps run sharded on a mesh of processes: every
+# family, tensor-parallel over the model axis, the MoE blocks also
+# expert-parallel over the data axes
+SHARDED_SERVING_FAMILIES = ("dense", "vlm", "ssm", "audio", "moe", "hybrid")
 
 
 def _local(t):
@@ -373,6 +377,28 @@ def cache_layout(cache_sh) -> Dict[str, Any]:
     return {"kv": kv, "conv": conv}
 
 
+def serving_axes(cfg: ModelConfig, group: ShardGroup, layout: Dict[str, Any],
+                 rows: Tuple[int, int]):
+    """This rank's (``ModelAxis`` or None, ``ExpertAxis`` or None) in a
+    sharded serving step: the model axis where it is larger than 1, with
+    the cache's ``layout`` (``cache_layout``); the expert axis for a
+    model with experts, its rows at ``rows`` = (start, total) of the
+    step's batch."""
+    mesh = group.mesh
+    ax = (ModelAxis(group, **layout) if mesh.sizes.get("model", 1) > 1
+          else None)
+    ex = (ExpertAxis(group, expert_axes(mesh, cfg.moe.num_experts), rows)
+          if cfg.moe is not None else None)
+    return ax, ex
+
+
+@contextlib.contextmanager
+def use_serving_axes(axes):
+    """``serving_axes``' pair active on this thread."""
+    with use_model_axis(axes[0]), use_expert_axis(axes[1]):
+        yield
+
+
 def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
                     run: Callable, cache_shapes: Callable,
                     group: Optional[ShardGroup] = None):
@@ -386,17 +412,11 @@ def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
     axes only, is its local shard; the cache holds only those rows),
     runs ``run(params, inputs, cache)`` on its local shards inside its
     ``ModelAxis`` (tensor-parallel over the model axis, which need not
-    divide the heads; no weight is gathered) and keeps its share of the
-    outputs. The moe and hybrid families raise NotImplementedError."""
+    divide the heads) and, for a model with experts, its ``ExpertAxis``
+    (the MoE blocks expert-parallel over the data axes, by all-to-all;
+    the router's weight is the one weight gathered) and keeps its share
+    of the outputs."""
     cfg = model.cfg
-    if cfg.family not in SHARDED_SERVING_FAMILIES:
-        def refused(*_):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's serving steps do not "
-                "run sharded over a mesh of processes yet (ROADMAP Queue 1: "
-                "the moe family's expert parallelism, then the hybrid "
-                "family's serving steps)")
-        return refused
     logits_sh, cache_sh = out_sh
     layout = cache_layout(cache_sh)
     data = entry_axes(b_sh["tokens"].spec[0])
@@ -422,9 +442,8 @@ def sharded_serving(model: TransformerLM, mesh: Mesh, b_sh, out_sh,
         local = tree_map(_local, params)
         cache = (tree_map(_local, batch["cache"]) if "cache" in batch
                  else None)
-        ax = (ModelAxis(g, **layout) if mesh.sizes.get("model", 1) > 1
-              else None)
-        with use_model_axis(ax):
+        axes = serving_axes(cfg, g, layout, (mine.start, B))
+        with use_serving_axes(axes):
             logits, new_cache = run(local, rows, cache)
         shapes = cache_shapes(batch)
         return (g.wrap(logits, logits_sh, (B, 1, cfg.vocab_size)),

@@ -549,8 +549,12 @@ def mlp_columns(F: int, size: int, index: int) -> Tuple[int, int]:
     return lo * unit, hi * unit
 
 
-def swiglu_mlp(params, x: torch.Tensor, cfg=None) -> torch.Tensor:
-    """params: {wi (E,F), wg (E,F), wo (F,E)}. Inside a sharded serving
+def swiglu_mlp(params, x: torch.Tensor, cfg=None, *,
+               d_ff: Optional[int] = None,
+               kernel: Optional[bool] = None) -> torch.Tensor:
+    """params: {wi (E,F), wg (E,F), wo (F,E)}, F = ``d_ff`` (by default
+    ``cfg.d_ff``); the products through the matmul kernel where
+    ``kernel`` (by default ``cfg.use_pallas``). Inside a sharded serving
     step ``wg`` and ``wi`` are column-parallel and ``wo`` row-parallel
     over this rank's hidden columns: its split of ``mlp`` or, where the
     axis does not divide F and the weights are whole on every rank, its
@@ -561,12 +565,13 @@ def swiglu_mlp(params, x: torch.Tensor, cfg=None) -> torch.Tensor:
     ax = model_axis() or LOCAL
     E = x.shape[-1]
     wg, wi, wo = params["wg"], params["wi"], params["wo"]
-    if ax.size > 1 and tuple(wo.shape) == (cfg.d_ff, E):
-        lo, hi = mlp_columns(cfg.d_ff, ax.size, ax.index)
+    if ax.size > 1 and tuple(wo.shape) == (d_ff or cfg.d_ff, E):
+        lo, hi = mlp_columns(wo.shape[0], ax.size, ax.index)
         wg, wi, wo = wg[:, lo:hi], wi[:, lo:hi], wo[lo:hi]
         if lo == hi:                # no columns: a zero partial
             return row_parallel(x[..., :0], wo, ax)
-    kernel = cfg is not None and cfg.use_pallas
+    if kernel is None:
+        kernel = cfg is not None and cfg.use_pallas
     h = (F.silu(column_product(x, wg, ax, kernel))
          * column_product(x, wi, ax, kernel))
     return out_product(h, wo, E, ax, kernel)

@@ -4,7 +4,8 @@ and file store in the environment; imports nothing of JAX).
 
     python tests/_torch_sharded_serving_rank.py JOB.json OUT_PREFIX
 
-JOB.json holds ``model_parallel`` and a list of cases. Each case runs
+JOB.json holds ``model_parallel`` (a ("data", "model") host mesh) or
+``axes`` and ``shape`` (any mesh), and a list of cases. Each case runs
 ``make_prefill_step``'s and ``make_decode_step``'s ``sharded_fn`` from
 the parameters in its ``.npz`` (the JAX model's leaves in ``jax.tree``
 order, carried across by ``params_from_jax`` and cast to the model
@@ -14,8 +15,9 @@ prompts, the cache resharded and padded to the decode capacity
 0 writes the gathered logits and every cache leaf of each step to
 OUT_PREFIX.<case>.npz; every rank writes its bytes (``cache_index`` as
 the bundle's abstract scalar where the model reads it; in decode, no
-encoder weights, which it never reads) and whether each
-weight is held as its shard to OUT_PREFIX.<rank>.json.
+encoder weights, which it never reads), the bytes it sent into the
+expert axis's all-to-alls in the prefill and the first decode step, and
+whether each weight is held as its shard to OUT_PREFIX.<rank>.json.
 """
 import dataclasses
 import json
@@ -26,7 +28,7 @@ import torch
 
 from repro_torch.configs import ShapeConfig, get_config
 from repro_torch.distributed.sharding import ShardGroup
-from repro_torch.launch.mesh import init_from_env, make_host_mesh
+from repro_torch.launch.mesh import Mesh, init_from_env, make_host_mesh
 from repro_torch.launch.steps import (decode_cache, make_decode_step,
                                       make_prefill_step)
 from repro_torch.models.transformer import build_model
@@ -113,8 +115,10 @@ def run_case(case, mesh, group, out_prefix):
     pb, steps = inputs(cfg, case)
     batch = group.layout(as_batch(cfg, pb), pre.in_shardings[1])
     out = {"argument_bytes": {"prefill": _bytes((params, batch))},
-           "shards_ok": shards_ok}
+           "shards_ok": shards_ok, "a2a_bytes": {}}
+    sent = group.a2a_bytes
     logits, cache = pre.sharded_fn(params, batch)
+    out["a2a_bytes"]["prefill"] = group.a2a_bytes - sent
     whole = {"prefill/logits": group.gather(logits, pre.out_shardings[0])}
     whole.update({f"prefill/{k}": v for k, v in group.gather(
         cache, pre.out_shardings[1]).items()})
@@ -131,7 +135,9 @@ def run_case(case, mesh, group, out_prefix):
                 ({k: v for k, v in params.items() if k != "encoder"},
                  {k: v for k, v in db.items() if k != "cache_index"})
             ) + 4 * ("k" in cache)
+        sent = group.a2a_bytes
         logits, cache = dec.sharded_fn(params, db)
+        out["a2a_bytes"].setdefault("decode", group.a2a_bytes - sent)
         whole[f"decode{i}/logits"] = group.gather(logits,
                                                   dec.out_shardings[0])
         whole.update({f"decode{i}/{k}": v for k, v in group.gather(
@@ -147,7 +153,9 @@ def main(job_path: str, out_prefix: str) -> None:
     init_from_env()
     with open(job_path) as f:
         job = json.load(f)
-    mesh = make_host_mesh(job["model_parallel"], device="cpu")
+    mesh = (Mesh(tuple(job["axes"]), tuple(job["shape"]), "cpu")
+            if "axes" in job else
+            make_host_mesh(job["model_parallel"], device="cpu"))
     group = ShardGroup(mesh)
     out = {"rank": group.rank, "mesh": list(mesh.shape),
            "coords": group.coords, "cases": {}}

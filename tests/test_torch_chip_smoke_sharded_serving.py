@@ -10,7 +10,10 @@ against one process running the same steps here. Every gate of every
 rank passes (each layer from one input, the first layers against the
 kernels' plain versions on the same shards, the cache, the bytes against
 the dry run's, the launch shapes), and the launch guard fires at the end
-because the kernels' plain versions launch nothing on the CPU.
+because the kernels' plain versions launch nothing on the CPU. The
+expert-parallel runs: qwen3-moe-30b-a3b on (2, 1) and (2, 2) and
+jamba-1.5-large-398b's period on (2, 2), whose MoE blocks route as one
+process and send the dry run's all-to-all bytes.
 """
 import re
 import sys
@@ -99,6 +102,61 @@ def test_sharded_serving_phase_on_uneven_axes_at_reduced_width(capsys):
     assert out.count("wave 0 (") == 1
 
 
+def test_sharded_serving_phase_moe_and_hybrid_at_reduced_width(capsys):
+    """The card's three expert-parallel runs at reduced width, in one
+    wave: qwen3-moe-30b-a3b on (2, 1) and (2, 2) (4 experts, 2 a rank)
+    cut to its first layer, and jamba-1.5-large-398b's period of 8
+    layers with its experts' width cut as on the card, on (2, 2). Every
+    rank's MoE blocks, fed one process's FFN input, route as one process
+    and send the dry run's all-to-all bytes."""
+    runs = ((cs.ShardedRun("qwen3-moe-30b-a3b", ((2, 1), (2, 2)), TRAFFIC,
+                           layers=1),
+             cs.ShardedRun("jamba-1.5-large-398b", ((2, 2),), TRAFFIC,
+                           widths=cs.JAMBA_PERIOD)),)
+    with pytest.raises(AssertionError, match="miss a kernel of the path"
+                       ) as e:
+        cs.sharded_serving_phase(torch.device("cpu"), runs, reduced=True,
+                                 timeout_s=240)
+    # the moe family launches flash alone, the hybrid family all three
+    for what in ("qwen3-moe-30b-a3b (2, 1) flash_plain",
+                 "qwen3-moe-30b-a3b (2, 2) flash_plain",
+                 "jamba-1.5-large-398b (2, 2) matmul_plain",
+                 "jamba-1.5-large-398b (2, 2) flash_plain",
+                 "jamba-1.5-large-398b (2, 2) ssd_plain"):
+        assert what in str(e.value)
+    assert "(2, 1) matmul_plain" not in str(e.value)
+    out = capsys.readouterr().out
+    lines = [ln for ln in out.splitlines() if " rank " in ln]
+    assert len(lines) == 2 + 4 + 4
+    for ln in lines:
+        assert ln.endswith(" ok"), ln
+        assert "the rest passed through True" in ln
+        assert "launches at shard shapes True" in ln
+        assert re.search(r"top-2 sets equal True; fed the rank's own, \d+ "
+                         r"of \d+ sets flipped", ln), ln
+        pre, dec, pre_dry, dec_dry = re.search(
+            r"all-to-all bytes sent (\d+) \(prefill\) and (\d+) \(a decode "
+            r"step\), dry run (\d+) and (\d+)", ln).groups()
+        assert (pre, dec) == (pre_dry, dec_dry) and int(pre) > 0, ln
+        bytes_, priced = re.search(r"bytes (\{.*?\}), dry run (\{.*?\})",
+                                   ln).groups()
+        assert bytes_ == priced, ln
+    # jamba's kernels against their plain versions include its first
+    # attention layer (4) beside its first two, mamba2 layers
+    jamba = [ln for ln in lines if "jamba" in ln]
+    for ln in jamba:
+        plain = ln.split("2 layers:")[1]
+        assert "mixer" in plain and "mlp" in plain and "decode_mixer" in plain
+    assert "jamba-1.5-large-398b: 8 layers" in out
+    assert out.count("wave 0 (") == 1
+
+
+def test_plain_layers_hold_an_attention_layer_of_every_stack():
+    assert cs.plain_layers(get_config("qwen3-moe-30b-a3b")) == {0, 1}
+    assert cs.plain_layers(get_config("jamba-1.5-large-398b")) == {0, 1, 4}
+    assert cs.plain_layers(get_config("mamba2-130m")) == {0, 1}
+
+
 def test_launch_shapes_gate_on_axes_that_do_not_divide_the_heads():
     """qwen2.5-14b on (1, 3): flash on 15, 15 and 10 heads (G = 5), the
     MLP's matmuls at 4608 columns; whisper-base on (1, 3): 3, 3 and 2
@@ -152,3 +210,29 @@ def test_launch_shapes_gate_catches_a_whole_width_launch():
     assert cs.launch_shapes_gate(m, ssd, 4, 2)
     assert not cs.launch_shapes_gate(m, ssd, 4, 1)
     assert not cs.launch_shapes_gate(m, {**ssd, "ssd": set()}, 4, 2)
+
+
+def test_launch_shapes_gate_of_the_moe_and_hybrid_families():
+    """qwen3-moe-30b-a3b on (2, 2), 2 rows a rank: flash on 16 heads (G =
+    8) and no matmul (its MoE blocks are torch ops); jamba-1.5-large-398b
+    on (2, 2): flash on 32 heads (G = 8), the SSD on 64 of its 128 heads
+    of 128 columns (launched as 128 heads of 64), the dense MLP's
+    matmuls at 12288 of 24576 columns; a missing family or a whole-width
+    launch fails it."""
+    q = get_config("qwen3-moe-30b-a3b")
+    good = {"matmul": set(), "flash": {(2 * 16, 512, 512, 128, 8)},
+            "ssd": set()}
+    assert cs.launch_shapes_gate(q, good, 2, 2)
+    assert not cs.launch_shapes_gate(
+        q, {**good, "matmul": {(1024, 2048, 384)}}, 2, 2)
+    assert not cs.launch_shapes_gate(
+        q, {**good, "flash": {(2 * 32, 512, 512, 128, 8)}}, 2, 2)
+    j = get_config("jamba-1.5-large-398b")
+    E = j.d_model
+    good = {"matmul": {(1024, E, 12288), (1024, 12288, E)},
+            "flash": {(2 * 32, 512, 512, 128, 8)},
+            "ssd": {(2, 512, 128, 64, 128)}}
+    assert cs.launch_shapes_gate(j, good, 2, 2)
+    for fam, bad in (("ssd", set()), ("ssd", {(2, 512, 256, 64, 128)}),
+                     ("matmul", {(1024, E, 24576)}), ("flash", set())):
+        assert not cs.launch_shapes_gate(j, {**good, fam: bad}, 2, 2), fam

@@ -422,6 +422,47 @@ def test_ssd_check_raises_on_a_launch_no_route_takes():
             SSD.check(desc, args, new_outputs(desc, cpu))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_wrapper_splits_a_wide_head_exactly(dtype):
+    """jamba's SSD heads of 128 columns run as two heads of 64 (the
+    kernels' width): every launch at HD = 64 with twice the heads, each
+    carrying its head's dt, A and D; y and the final state equal one
+    walk of the reference body over the whole heads, bit for bit (the
+    same products in the same order)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.mamba2_scan import make_ssd_body
+    g = torch.Generator().manual_seed(5)
+    B, S, NH, HD, DS, chunk = 2, 64, 3, 128, 16, 32
+    x = torch.randn(B, S, NH, HD, generator=g).to(dtype)
+    dt = torch.rand(B, S, NH, generator=g) * 0.1
+    A = -torch.rand(NH, generator=g) - 0.5
+    Bm = torch.randn(B, S, DS, generator=g).to(dtype)
+    Cm = torch.randn(B, S, DS, generator=g).to(dtype)
+    D = torch.randn(NH, generator=g)
+    seen = []
+    desc_fn = ops.mamba2_scan_desc
+
+    def recording(*a, **kw):
+        seen.append(a[:5])
+        return desc_fn(*a, **kw)
+    ops.mamba2_scan_desc = recording
+    try:
+        y, h = ops.mamba2_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    finally:
+        ops.mamba2_scan_desc = desc_fn
+    assert seen == [(B, S, 2 * NH, 64, DS)]
+    body = make_ssd_body(chunk, NH, HD, DS)
+    want_y = torch.empty(B, S, NH, HD, dtype=dtype)
+    want_h = torch.zeros(B, NH, HD, DS)
+    for b in range(B):
+        for c in range(S // chunk):
+            t = slice(c * chunk, (c + 1) * chunk)
+            yb = want_y[b:b + 1, t]
+            body((b, c), x[b:b + 1, t], dt[b:b + 1, t], A, Bm[b:b + 1, t],
+                 Cm[b:b + 1, t], D, yb, want_h[b:b + 1])
+    assert torch.equal(h, want_h) and torch.equal(y, want_y)
+
+
 def _split(v, lo=True):
     """An f32 operand as bf16 hi + lo (the tensor-core route's split), or
     rounded once to bf16 (``lo=False``), back in f32."""

@@ -67,8 +67,8 @@ whole, are held by relative L2 error:
       (``jax.jit`` drops an unread input, and so does the dry run); the
       per-slot cases pass a (B,) one.
 
-The moe and hybrid families refuse a sharded step; the shard-wise init
-draws what the whole init draws. Without a process group: the split of
+The shard-wise init draws what the whole init draws (the moe and hybrid
+families' sharded steps are ``test_torch_sharded_moe.py``'s). Without a process group: the split of
 heads over an uneven axis against GSPMD's padding, the padded gather,
 and a rank with no heads adding zero partials and launching nothing.
 """
@@ -382,24 +382,6 @@ def test_more_sharded_serving_cases(slow_runs, mesh, name):
 
 
 # -- without a process group ------------------------------------------------
-
-
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "jamba-1.5-large-398b"])
-def test_other_families_refuse_a_sharded_step(arch):
-    """The moe and hybrid families' sharded steps raise, naming the queue;
-    the bundles (which the dry run prices) still build."""
-    model = build_model(get_config(arch).reduced())
-    mesh = Mesh(("data", "model"), (1, 2), "cpu")
-    for make, shape in ((make_prefill_step, ShapeConfig("p", 8, 4,
-                                                        "prefill")),
-                        (make_decode_step, ShapeConfig("d", 8, 4,
-                                                       "decode"))):
-        bundle = make(model, mesh, shape)
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            bundle.sharded_fn({}, {})
-    assert make_prefill_step(model, Mesh(("data", "model"), (1, 1), "cpu"),
-                             ShapeConfig("p", 8, 4, "prefill")
-                             ).sharded_fn is None
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
